@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (leastereo_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line and raising on failure (nothing is
+caught, so any failure exits non-zero):
+
+1. card: name and power limit (nvidia-smi); TF32 off for the fp32 phases.
+2. build: both CUDA kernels built from leastereo_tpu_torch/csrc with nvcc.
+3. kernels: each kernel on the card at the KITTI main-path shapes against
+   its plain PyTorch version evaluated in float64, on peaky (trained-like)
+   and diffuse inputs, plus kernel and plain-version times.
+4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
+   eval, random seeded weights: the default forward (fused head kernel),
+   timed for >= 10 s, then the ``return_entropy`` forward (band kernel).
+   Launch counts are zeroed just before and read just after.
+5. layers and profile: per-layer times and the device's busy share.
+6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48.
+7. gate refusal: a cost the band kernel refuses raises on the card.
+
+Then the kernel table, the card line and, last, the result line. Exits
+non-zero without printing a result when no CUDA card is present.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s,
+# bf16 tensor cores 989 TFLOP/s, fp32 CUDA cores 67 TFLOP/s. Special-function
+# units (exp2): 16 results per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
+# 1.98 GHz boost clock.
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_SFU_S = 16 * 132 * 1.98e9
+
+# Kernel-name patterns for the per-frame device-time breakdown (first match wins).
+KERNEL_GROUPS = (
+    ("head kernels (this port)", ("head_kernel", "band_kernel")),
+    ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
+    ("convolutions (cuDNN)", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm", "sm90_", "sm80_")),
+    ("trilinear/bilinear resize", ("upsample",)),
+    ("gathers (fused stem)", ("index", "gather")),
+    ("elementwise (add, relu, cast, cat)", ("elementwise", "CatArray", "reduce")),
+)
+TOL_KERNEL_PX = 2e-3  # kernels against float64 plain versions
+TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, str]:
+    """Least time (ms) for the work: bytes over memory rate against operations
+    (conv FLOPs at the peak of their input type, exponentials at the SFU rate)."""
+    t_bytes = bytes_moved / PEAK_BYTES_S
+    t_ops = max(flops / PEAK_FLOPS[flop_dtype], exps / PEAK_SFU_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def peaky_cost(gen, b, d, h, w, dev):
+    """Trained-like unimodal cost plus noise (as tests/test_pallas_softargmin.py)."""
+    best = torch.randint(0, d, (b, 1, h, w), generator=gen, device=dev)
+    planes = torch.arange(d, device=dev).view(1, d, 1, 1)
+    return 0.35 * (planes - best).abs().float() + 0.8 * torch.randn(b, d, h, w, generator=gen, device=dev)
+
+
+def head_inputs(gen, kind, b, c, d, h, w, dev):
+    """Pre-head volume (B, C, D, h, w) and last_3 kernel (1, C, 3, 3, 3).
+    "peaky": channel 0 carries a trained-like cost that the kernel's centre
+    tap passes through; "diffuse": random volume and kernel."""
+    vol = 0.5 * torch.randn(b, c, d, h, w, generator=gen, device=dev)
+    if kind == "peaky":
+        vol[:, 0] = peaky_cost(gen, b, d, h, w, dev)
+        kern = 0.02 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
+        kern[0, 0, 1, 1, 1] += 1.0
+    else:
+        kern = 0.2 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
+    return vol, kern
+
+
+def calibrate_head(model, left, right) -> None:
+    """Scale the matching ``last_3`` kernel so the cost spans a few units.
+    Random weights give a cost of huge magnitude, where softmin degenerates
+    to a hard argmin and the soft-argmin is ill conditioned."""
+    cfg = model.config
+    with torch.no_grad():
+        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(cfg.dtype)
+        feats = model.feature(x)
+        pre = model.matching(feats[: left.shape[0]], feats[left.shape[0] :], cfg.maxdisp // 3)
+        std = model.matching.last_3(pre).float().std()
+        model.matching.last_3.conv.weight.mul_(3.0 / std)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
+        return 2
+
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.ops import _build
+    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_cuda, conv_soft_argmin_reference
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+    from leastereo_tpu_torch.ops.softargmin import soft_argmin
+
+    dev = torch.device("cuda")
+    # ---- 1. card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = smi
+    emit({"phase": "card", "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
+          "tf32": False, "note": "TF32 off for cuDNN and matmul: fp32 phases run in full fp32"})
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    _build.load_kernels()
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln]
+    emit({"phase": "build", "seconds": build_s, "built": ["fused_head", "band_soft_argmin"],
+          "source": "leastereo_tpu_torch/csrc/soft_argmin_heads.cu", "ptxas": ptxas})
+
+    # ---- 3. kernels against their plain versions at the main path's shapes
+    b, c, d, h, w, maxdisp = 1, 32, 64, 128, 416, 192
+    gen = torch.Generator(device=dev).manual_seed(0)
+    head_err, band_err = 0.0, 0.0
+    for kind in ("peaky", "diffuse"):
+        vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            vol = vol32.to(dt)
+            got = conv_soft_argmin_cuda(vol, kern, maxdisp)
+            ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
+            err = (got.double() - ref).abs().max().item()
+            emit({"phase": "kernel_check", "kernel": "fused_head", "input": kind, "dtype": str(dt),
+                  "shape": list(vol.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
+            if not err < TOL_KERNEL_PX:
+                raise AssertionError(f"fused head {kind} {dt}: {err} px")
+            head_err = max(head_err, err)
+            del ref
+        cost = peaky_cost(gen, b, d, h, w, dev) if kind == "peaky" else torch.randn(b, d, h, w, generator=gen, device=dev)
+        got = soft_argmin_cuda(cost, maxdisp)
+        err = (got.double() - soft_argmin(cost.double(), maxdisp)).abs().max().item()
+        emit({"phase": "kernel_check", "kernel": "band_soft_argmin", "input": kind, "dtype": "torch.float32",
+              "shape": list(cost.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
+        if not err < TOL_KERNEL_PX:
+            raise AssertionError(f"band kernel {kind}: {err} px")
+        band_err = max(band_err, err)
+
+    vol = vol32.to(torch.bfloat16)  # main path: bf16 volume
+    head_ms = cuda_ms(lambda: conv_soft_argmin_cuda(vol, kern, maxdisp))
+    head_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
+    band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
+    band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
+    out_bytes = b * 9 * h * w * 4
+    exps = b * 9 * h * w * 3 * d
+    head_bound = bound(vol.numel() * 2 + kern.numel() * 4 + out_bytes, 2 * 27 * c * b * d * h * w, torch.bfloat16, exps)
+    band_bound = bound(cost.numel() * 4 + out_bytes, 0, torch.float32, exps)
+    emit({"phase": "kernel_times", "card": card, "fused_head_ms": head_ms, "fused_head_plain_ms": head_plain_ms,
+          "band_ms": band_ms, "band_plain_ms": band_plain_ms})
+    del vol32, vol, cost
+    torch.cuda.empty_cache()
+
+    # ---- 4. main path at KITTI
+    H, W = 384, 1248
+    rng = np.random.RandomState(0)
+    left = torch.from_numpy(rng.randn(1, H, W, 3).astype(np.float32)).to(dev)
+    right = torch.from_numpy(rng.randn(1, H, W, 3).astype(np.float32)).to(dev)
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16"), seed=0)
+    calibrate_head(model, left, right)
+    model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
+    model_conf.load_state_dict(model.state_dict())
+    conv_soft_argmin_cuda.launches = 0
+    soft_argmin_cuda.launches = 0
+    with torch.inference_mode():
+        for _ in range(3):  # warm-up: cuDNN algorithm selection, allocator
+            disp = model(left, right)
+        torch.cuda.synchronize()
+        witness = torch.zeros((), device=dev)
+        frames, t0 = 0, time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        while True:
+            disp = model(left, right)
+            witness += disp.sum()  # full-reduction witness: every pixel feeds it
+            frames += 1
+            if frames % 10 == 0:
+                torch.cuda.synchronize()
+                if time.perf_counter() - t0 >= 10.0:
+                    break
+        elapsed = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        fused_launches = conv_soft_argmin_cuda.launches
+        disp_conf, ent = model_conf(left, right)
+        torch.cuda.synchronize()
+    launches = {"fused_head": conv_soft_argmin_cuda.launches, "band_soft_argmin": soft_argmin_cuda.launches}
+    d_np = disp.float().cpu().numpy()
+    ok = (
+        d_np.shape == (1, H, W) and np.isfinite(d_np).all() and d_np.min() >= 0 and d_np.max() <= maxdisp
+        and tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and math.isfinite(witness.item())
+        and launches["fused_head"] > 0 and launches["band_soft_argmin"] > 0
+    )
+    emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
+          "frames": frames, "seconds": elapsed, "frames_per_s": frames / elapsed, "ms_per_frame": 1e3 * elapsed / frames,
+          "peak_mem_gb": peak_gb, "disp_min": float(d_np.min()), "disp_max": float(d_np.max()), "disp_std": float(d_np.std()),
+          "fused_head_launches_default": fused_launches, "launches": launches,
+          "confidence_disp_vs_default_max_px": (disp_conf.float() - disp.float()).abs().max().item()})
+    if not ok:
+        raise AssertionError("main path output or launch counts wrong")
+
+    # ---- 5. layers and device busy share
+    with torch.inference_mode():
+        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(torch.bfloat16)
+        feats = model.feature(x)
+        fl, fr = feats[:1], feats[1:]
+        pre = model.matching(fl, fr, d)
+        k3 = model.matching.last_3.conv.weight.to(torch.bfloat16)
+        layers = {
+            "feature_both_views_ms": cuda_ms(lambda: model.feature(x), iters=5),
+            "fused_stem0_ms": cuda_ms(lambda: model.matching.stem0(fl, fr, d), iters=5),
+            "matching_net_ms": cuda_ms(lambda: model.matching(fl, fr, d), iters=5),
+            "fused_head_ms": cuda_ms(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp), iters=5),
+            "last_3_conv_plus_band_ms": cuda_ms(
+                lambda: soft_argmin_cuda(model.matching.last_3(pre)[:, 0].float(), maxdisp), iters=5),
+        }
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                model(left, right)
+            torch.cuda.synchronize()
+    # Device-side events only (kernels, copies): operator events carry their
+    # kernels' time as well and would count it twice. The idle share compares
+    # the device time per frame with the untraced frame time of phase 4, since
+    # tracing slows the host.
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
+    groups = {}
+    for e in events:
+        name = e.key
+        kind = next((k for k, pats in KERNEL_GROUPS if any(p in name for p in pats)), "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / 3
+    emit({"phase": "layers", "card": card, **layers,
+          "device_ms_per_frame": busy_ms, "device_idle_share": 1 - busy_ms / (1e3 * elapsed / frames),
+          "device_ms_per_frame_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+          "top_kernels_ms_per_frame": [[e.key[:100], e.self_device_time_total / 1e3 / 3]
+                                       for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]})
+    del model, model_conf, feats, pre, x
+    torch.cuda.empty_cache()
+
+    # ---- 6. whole model, kernel path vs plain path, fp32, reduced size
+    hs, ws, md = 96, 192, 48
+    left_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
+    right_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
+    results = {}
+    kern_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32"), seed=1)
+    calibrate_head(kern_model, left_s, right_s)
+    state = kern_model.state_dict()
+    for entropy in (False, True):
+        k_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32", return_entropy=entropy))
+        p_model = best_sceneflow_model(
+            LEAStereoConfig(maxdisp=md, compute_dtype="float32", return_entropy=entropy, pallas_head=False))
+        k_model.load_state_dict(state)
+        p_model.load_state_dict(state)
+        n_head, n_band = conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches
+        with torch.inference_mode():
+            got, ref = k_model(left_s, right_s), p_model(left_s, right_s)
+        if entropy:
+            got, ref = got[0], ref[0]
+        used = "band_soft_argmin" if soft_argmin_cuda.launches > n_band else (
+            "fused_head" if conv_soft_argmin_cuda.launches > n_head else None)
+        results["return_entropy" if entropy else "default"] = {
+            "kernel": used, "max_abs_diff_px": (got - ref).abs().max().item(), "disp_std": ref.std().item()}
+    emit({"phase": "model_kernel_vs_plain", "shape": [1, hs, ws], "maxdisp": md, "dtype": "float32",
+          "tol_px": TOL_MODEL_PX, **results})
+    for name, r in results.items():
+        if r["kernel"] is None or not r["max_abs_diff_px"] < TOL_MODEL_PX:
+            raise AssertionError(f"whole model {name}: {r}")
+
+    # ---- 7. a cost the kernels refuse raises on the card: maxdisp 50 gives
+    # D = 16 != 50 / 3, so the fused head falls to the band kernel, whose
+    # wrapper raises rather than run the plain version.
+    bad_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md + 2, compute_dtype="float32"))
+    counts = (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches)
+    refusal = None
+    with torch.inference_mode():
+        try:
+            bad_model(left_s, right_s)
+        except ValueError as exc:
+            refusal = str(exc)
+    emit({"phase": "gate_refusal", "maxdisp": md + 2, "raised": refusal})
+    if refusal is None or "band kernel refuses" not in refusal:
+        raise AssertionError("a refused cost on the card did not raise")
+    if (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches) != counts:
+        raise AssertionError("a refused cost launched a kernel")
+
+    # ---- kernel table, card, result
+    src = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
+    emit({"kernels": [
+        {"name": "fused_head", "route": "cuda", "source": src, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
+         "launches": launches["fused_head"], "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
+         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None},
+        {"name": "band_soft_argmin", "route": "cuda", "source": src,
+         "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45",
+         "launches": launches["band_soft_argmin"], "max_abs_err": band_err, "ms": band_ms,
+         "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None},
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,15 @@
+"""PyTorch + CUDA port of ``leastereo_tpu`` for one NVIDIA H100.
+
+The JAX package stays the reference; this package mirrors its module paths
+(``ops/``, ``models/``, ``utils/``) and is tested against it on the same
+numpy-seeded inputs (``tests/test_torch_*.py``). Layouts at the public
+boundary follow the JAX package (``LEAStereo.forward`` takes NHWC images and
+returns ``(B, H, W)``); inside, tensors are NCHW / NCDHW so convolutions go to
+cuDNN. The two Pallas TPU kernels are hand-written CUDA kernels in
+``csrc/soft_argmin_heads.cu``, built with ``nvcc`` at first use
+(``ops/_build.py``).
+"""
+
+from .models import LEAStereo, LEAStereoConfig, best_sceneflow_model
+
+__all__ = ["LEAStereo", "LEAStereoConfig", "best_sceneflow_model"]

@@ -1,0 +1,282 @@
+// Disparity-regression heads of LEAStereo for Hopper (sm_90a), plain C API.
+//
+// Two kernels share one stage: the 3x trilinear upsample (align_corners=False,
+// edge-clamped) of a 1-channel cost (B, D, h, w), a min-stabilised softmin over
+// the 3D disparity phases and the expectation sum_d d * p(d), written straight
+// to the interleaved (B, 3h, 3w) fp32 map.
+//
+//  * band kernel (lst_band_soft_argmin) replaces the Pallas `_band_kernel`
+//    (leastereo_tpu/ops/pallas_softargmin.py:45-98): each block loads its cost
+//    tile with a +-1 edge-clamped halo from device memory.
+//  * fused head (lst_head_soft_argmin) replaces the Pallas `_head_kernel`
+//    (leastereo_tpu/ops/pallas_head.py:96-236): each block first computes its
+//    cost tile itself, the `last_3` 3x3x3 conv (C -> 1, zero padding) of the
+//    pre-head volume (B, C, D, h, w), accumulated in fp32 for fp32 and bf16
+//    volumes alike, so the cost never reaches device memory.
+//
+// Tiling: a block owns TH x TW low-resolution pixels (3TH x 3TW outputs) and
+// keeps the cost tile as fp32 [D][TH+2][TW+2] in shared memory. Tile sites
+// outside the frame take the value of the nearest in-frame site: that is the
+// upsample's edge replication, and for the fused head it is applied after the
+// conv (the conv is evaluated at the clamped site). Ragged frames are handled
+// by clamping loads and masking stores.
+//
+// What bounds them on the H100: the band kernel does 3D exponentials per
+// output pixel (92 M per KITTI frame) against 13.6 MB of input, so the
+// special-function units bound it, not memory. The fused head's conv is
+// 27*C multiply-adds per cost element (5.9 GFLOP per KITTI frame) on CUDA
+// cores; its ~200 KB of shared memory allows one block per SM, so the latency
+// of staging each input channel and the FMA throughput bound it, far above
+// its 218 MB read. The design keeps each input element in shared memory for
+// all 27 taps (one staged slab per channel, halo amplification
+// (TH+4)(TW+4)/(TH*TW) = 1.7x), runs 512 threads so more staging loads are in
+// flight, and blocks the conv over 8 disparities per work item, so each slab
+// value read feeds up to three taps. Tensor cores (wgmma) and asynchronous
+// (TMA) staging for the conv are left to a later change.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TH = 8;               // low-res rows per block
+constexpr int TW = 32;              // low-res cols per block
+constexpr int THREADS = TH * TW;    // one low-res pixel per thread in the shared stage
+constexpr int HEAD_THREADS = 2 * THREADS;  // fused head: more loads in flight while staging
+constexpr int HR = TH + 2;          // cost tile rows (+-1 halo)
+constexpr int WR = TW + 2;          // cost tile cols (+-1 halo)
+constexpr int PLANE = HR * WR;
+constexpr int SR = TH + 4;          // fused head: staged input rows (+-2)
+constexpr int SW = TW + 4;          // fused head: staged input cols (+-2)
+constexpr int SPLANE = SR * SW;
+constexpr int DCHUNK = 8;           // fused head: disparities per conv work item
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// The 9 (rh, rw) output phases of one low-res pixel at one disparity plane:
+// H blend, then W blend, with 1/3 and 2/3 weights, from its 3x3 neighbourhood.
+__device__ __forceinline__ void blend9(const float* p, float cw[9]) {
+  const float third = 1.0f / 3.0f, two_third = 2.0f / 3.0f;
+  float ch[3][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float x0 = p[c], x1 = p[WR + c], x2 = p[2 * WR + c];
+    ch[0][c] = third * x0 + two_third * x1;
+    ch[1][c] = x1;
+    ch[2][c] = two_third * x1 + third * x2;
+  }
+#pragma unroll
+  for (int rh = 0; rh < 3; ++rh) {
+    cw[rh * 3 + 0] = third * ch[rh][0] + two_third * ch[rh][1];
+    cw[rh * 3 + 1] = ch[rh][1];
+    cw[rh * 3 + 2] = two_third * ch[rh][1] + third * ch[rh][2];
+  }
+}
+
+// Shared stage: upsample + softmin + expectation for this thread's pixel.
+// `tile` is the block's fp32 cost tile [D][HR][WR], already edge-replicated.
+__device__ void upsample_softmin_store(const float* tile, int D, float* out, int b, int i0,
+                                       int j0, int h, int w) {
+  const float third = 1.0f / 3.0f;
+  const int ti = threadIdx.x / TW, tj = threadIdx.x % TW;
+  const float* base = tile + ti * WR + tj;
+
+  float prev[9], cur[9], nxt[9], m[9];
+  // Pass 1: the minimum over all 3D phases.
+  blend9(base, cur);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) { prev[k] = cur[k]; m[k] = cur[k]; }
+  for (int d = 0; d < D; ++d) {
+    if (d + 1 < D) {
+      blend9(base + (d + 1) * PLANE, nxt);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) nxt[k] = cur[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float a0 = (prev[k] + 2.0f * cur[k]) * third;
+      const float a2 = (2.0f * cur[k] + nxt[k]) * third;
+      m[k] = fminf(m[k], fminf(fminf(a0, cur[k]), a2));
+      prev[k] = cur[k];
+      cur[k] = nxt[k];
+    }
+  }
+  // Pass 2: den = sum e, num = sum (3d + r) e.
+  float num[9], den[9];
+  blend9(base, cur);
+#pragma unroll
+  for (int k = 0; k < 9; ++k) { prev[k] = cur[k]; num[k] = 0.0f; den[k] = 0.0f; }
+  for (int d = 0; d < D; ++d) {
+    if (d + 1 < D) {
+      blend9(base + (d + 1) * PLANE, nxt);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) nxt[k] = cur[k];
+    }
+    const float i3 = 3.0f * d;
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float a0 = (prev[k] + 2.0f * cur[k]) * third;
+      const float a2 = (2.0f * cur[k] + nxt[k]) * third;
+      const float e0 = __expf(m[k] - a0);
+      const float e1 = __expf(m[k] - cur[k]);
+      const float e2 = __expf(m[k] - a2);
+      const float s = e0 + e1 + e2;
+      den[k] += s;
+      num[k] += i3 * s + (e1 + 2.0f * e2);
+      prev[k] = cur[k];
+      cur[k] = nxt[k];
+    }
+  }
+
+  const int gi = i0 + ti, gj = j0 + tj;
+  if (gi >= h || gj >= w) return;
+  const int W3 = 3 * w;
+  float* o = out + ((size_t)b * 3 * h + 3 * gi) * W3 + 3 * gj;
+#pragma unroll
+  for (int rh = 0; rh < 3; ++rh) {
+#pragma unroll
+    for (int rw = 0; rw < 3; ++rw) o[rh * W3 + rw] = num[rh * 3 + rw] / den[rh * 3 + rw];
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+band_kernel(const float* __restrict__ cost, float* __restrict__ out, int D, int h, int w) {
+  extern __shared__ float tile[];
+  const int b = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
+  const float* src = cost + (size_t)b * D * h * w;
+  for (int idx = threadIdx.x; idx < D * PLANE; idx += THREADS) {
+    const int d = idx / PLANE, rem = idx % PLANE;
+    const int gi = clampi(i0 - 1 + rem / WR, 0, h - 1);
+    const int gj = clampi(j0 - 1 + rem % WR, 0, w - 1);
+    tile[idx] = src[((size_t)d * h + gi) * w + gj];
+  }
+  __syncthreads();
+  upsample_softmin_store(tile, D, out, b, i0, j0, h, w);
+}
+
+__host__ __device__ inline int padded_depth(int D) { return (D + DCHUNK - 1) / DCHUNK * DCHUNK; }
+
+template <typename T>
+__global__ void __launch_bounds__(HEAD_THREADS)
+head_kernel(const T* __restrict__ vol, const float* __restrict__ kern, float* __restrict__ out,
+            int C, int D, int h, int w) {
+  extern __shared__ float smem[];
+  const int dp = padded_depth(D);
+  float* tile = smem;                          // [D][HR][WR] cost accumulator
+  float* slab = tile + D * PLANE;              // [dp+2][SR][SW] one input channel
+  float* wsm = slab + (dp + 2) * SPLANE;       // [C][3][3][3] conv weights
+  const int b = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
+
+  for (int idx = threadIdx.x; idx < D * PLANE; idx += HEAD_THREADS) tile[idx] = 0.0f;
+  for (int idx = threadIdx.x; idx < C * 27; idx += HEAD_THREADS) wsm[idx] = kern[idx];
+  // Depth padding planes of the slab (d = -1 and d >= D) stay zero throughout.
+  for (int idx = threadIdx.x; idx < SPLANE; idx += HEAD_THREADS) slab[idx] = 0.0f;
+  for (int idx = threadIdx.x; idx < (dp + 1 - D) * SPLANE; idx += HEAD_THREADS)
+    slab[(D + 1) * SPLANE + idx] = 0.0f;
+
+  const int nsite = PLANE;
+  const int nitems = nsite * (dp / DCHUNK);
+  const size_t hw = (size_t)h * w;
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // the previous channel's slab reads are done
+    const T* src = vol + ((size_t)b * C + c) * D * hw;
+#pragma unroll 8
+    for (int idx = threadIdx.x; idx < D * SPLANE; idx += HEAD_THREADS) {
+      const int d = idx / SPLANE, rem = idx % SPLANE;
+      const int gi = i0 - 2 + rem / SW, gj = j0 - 2 + rem % SW;
+      float v = 0.0f;  // the conv's zero padding outside the frame
+      if (gi >= 0 && gi < h && gj >= 0 && gj < w) v = to_float(src[d * hw + (size_t)gi * w + gj]);
+      slab[(d + 1) * SPLANE + rem] = v;
+    }
+    __syncthreads();
+    const float* wc = wsm + c * 27;
+    for (int item = threadIdx.x; item < nitems; item += HEAD_THREADS) {
+      const int s = item % nsite, d0 = (item / nsite) * DCHUNK;
+      // Evaluate the conv at the clamped in-frame site (edge replication of
+      // the cost happens after the conv); its centre in slab coordinates:
+      const int lr = clampi(i0 - 1 + s / WR, 0, h - 1) - (i0 - 2);
+      const int lc = clampi(j0 - 1 + s % WR, 0, w - 1) - (j0 - 2);
+      float acc[DCHUNK];
+#pragma unroll
+      for (int k = 0; k < DCHUNK; ++k) acc[k] = 0.0f;
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          // slab plane d0 + t holds depth d0 + t - 1
+          const float* col = slab + d0 * SPLANE + (lr - 1 + kh) * SW + (lc - 1 + kw);
+          float v[DCHUNK + 2];
+#pragma unroll
+          for (int t = 0; t < DCHUNK + 2; ++t) v[t] = col[t * SPLANE];
+#pragma unroll
+          for (int kd = 0; kd < 3; ++kd) {
+            const float wv = wc[kd * 9 + kh * 3 + kw];
+#pragma unroll
+            for (int k = 0; k < DCHUNK; ++k) acc[k] = fmaf(wv, v[k + kd], acc[k]);
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < DCHUNK; ++k)
+        if (d0 + k < D) tile[(d0 + k) * PLANE + s] += acc[k];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < THREADS) upsample_softmin_store(tile, D, out, b, i0, j0, h, w);
+}
+
+size_t band_smem_bytes(int D) { return (size_t)D * PLANE * sizeof(float); }
+
+size_t head_smem_bytes(int C, int D) {
+  return ((size_t)D * PLANE + (size_t)(padded_depth(D) + 2) * SPLANE + (size_t)C * 27) * sizeof(float);
+}
+
+dim3 grid_for(int B, int h, int w) { return dim3((w + TW - 1) / TW, (h + TH - 1) / TH, B); }
+
+template <typename T>
+int launch_head(const void* vol, const void* kern, void* out, int B, int C, int D, int h, int w,
+                cudaStream_t stream) {
+  const size_t smem = head_smem_bytes(C, D);
+  cudaError_t err = cudaFuncSetAttribute(head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  head_kernel<T><<<grid_for(B, h, w), HEAD_THREADS, smem, stream>>>(
+      static_cast<const T*>(vol), static_cast<const float*>(kern), static_cast<float*>(out), C, D, h, w);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* lst_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
+
+// Dynamic shared memory of each kernel, so the host-side gates can be
+// checked against the layout that was built.
+long long lst_band_smem_bytes(int D) { return (long long)band_smem_bytes(D); }
+long long lst_head_smem_bytes(int C, int D) { return (long long)head_smem_bytes(C, D); }
+
+// cost: (B, D, h, w) fp32 contiguous; out: (B, 3h, 3w) fp32 contiguous.
+int lst_band_soft_argmin(const void* cost, void* out, int B, int D, int h, int w, void* stream) {
+  const size_t smem = band_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  band_kernel<<<grid_for(B, h, w), THREADS, smem, (cudaStream_t)stream>>>(
+      static_cast<const float*>(cost), static_cast<float*>(out), D, h, w);
+  return (int)cudaGetLastError();
+}
+
+// vol: (B, C, D, h, w) contiguous, fp32 (vol_is_bf16 = 0) or bf16 (1);
+// kern: (C, 3, 3, 3) fp32 contiguous; out: (B, 3h, 3w) fp32 contiguous.
+int lst_head_soft_argmin(const void* vol, int vol_is_bf16, const void* kern, void* out, int B, int C,
+                         int D, int h, int w, void* stream) {
+  if (vol_is_bf16) return launch_head<__nv_bfloat16>(vol, kern, out, B, C, D, h, w, (cudaStream_t)stream);
+  return launch_head<float>(vol, kern, out, B, C, D, h, w, (cudaStream_t)stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,103 @@
+"""Fixed (decoded-genotype) cell for the 2-D feature and 3-D matching nets
+(port of ``leastereo_tpu/models/cells.py``; reference
+``retrain/new_model_2d.py:12-76`` and ``retrain/skip_model_3d.py:12-75``).
+
+The cell rescales its two predecessors onto its resolution
+(align_corners=True, odd-dim ``scale_dimension`` rule), 1x1-projects both to
+``c_out``, runs a 3-step DAG whose active edges and primitives come from the
+genotype, and concatenates the last ``block_multiplier`` states.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.convbr import ConvBR
+from ..ops.resize import resize2d, resize3d, scale_dimension
+from .genotypes import OP_CONV, OP_SKIP, Architecture
+
+__all__ = ["FixedCell"]
+
+
+class FixedCell(nn.Module):
+    """One decoded cell. Submodule names follow the reference
+    (``pre_preprocess``, ``preprocess``, ``_ops.K``); ``_ops`` holds an
+    ``nn.Identity`` at each skip position so conv indices match."""
+
+    def __init__(
+        self,
+        steps: int,
+        block_multiplier: int,
+        c_prev_prev: int,
+        c_prev: int,
+        c_out: int,
+        downup_sample: int,
+        genotype: Architecture,
+        ndim: int,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        self.steps = steps
+        self.block_multiplier = block_multiplier
+        self.downup_sample = downup_sample
+        self.ndim = ndim
+        kw = dict(ndim=ndim, generator=generator)
+        if c_prev_prev != c_out:
+            self.pre_preprocess = ConvBR(c_prev_prev, c_out, 1, 1, 0, **kw)
+        else:
+            self.pre_preprocess = None
+        self.preprocess = ConvBR(c_prev, c_out, 1, 1, 0, **kw)
+        # Ops pair with edges positionally: row-order ops, consumed in
+        # ascending-edge order (Architecture.active_edges).
+        self._edges = {}
+        ops = []
+        for seq, (edge, op) in enumerate(genotype.active_edges()):
+            self._edges[edge] = seq
+            if op == OP_SKIP:
+                ops.append(nn.Identity())
+            else:
+                assert op == OP_CONV, op
+                ops.append(ConvBR(c_out, c_out, 3, 1, 1, **kw))
+        self._ops = nn.ModuleList(ops)
+
+    def _resize(self, x: torch.Tensor, size: tuple[int, ...]) -> torch.Tensor:
+        return resize2d(x, size) if self.ndim == 2 else resize3d(x, size)
+
+    def _project_resize(self, x: torch.Tensor, size: tuple[int, ...], conv: ConvBR | None) -> torch.Tensor:
+        """Resize to ``size`` and 1x1-project. Reference order is resize ->
+        conv -> BN -> ReLU; in eval, conv + BN are channel-affine and the
+        resize is a convex spatial blend, so when upsampling the projection
+        runs first on the smaller tensor, as in the JAX package."""
+        need_resize = tuple(x.shape[2:]) != tuple(size)
+        if conv is None:
+            return self._resize(x, size) if need_resize else x
+        if need_resize and size[-1] > x.shape[-1] and not self.training:
+            weight, bias = conv.folded()
+            x = conv.conv_fn(x, weight.to(x.dtype), bias.to(x.dtype))
+            return torch.relu(self._resize(x, size))
+        if need_resize:
+            x = self._resize(x, size)
+        return conv(x)
+
+    def forward(self, s0: torch.Tensor, s1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        prev_input = s1
+        if self.downup_sample != 0:
+            scale = 0.5 if self.downup_sample == -1 else 2.0
+            size = tuple(scale_dimension(d, scale) for d in s1.shape[2:])
+        else:
+            size = tuple(s1.shape[2:])
+        s0 = self._project_resize(s0, size, self.pre_preprocess)
+        s1 = self._project_resize(s1, size, self.preprocess)
+
+        states = [s0, s1]
+        offset = 0
+        for _ in range(self.steps):
+            new_states = []
+            for j, h in enumerate(states):
+                seq = self._edges.get(offset + j)
+                if seq is not None:
+                    new_states.append(self._ops[seq](h))
+            offset += len(states)
+            states.append(sum(new_states[1:], new_states[0]))
+        return prev_input, torch.cat(states[-self.block_multiplier :], dim=1)

@@ -1,0 +1,146 @@
+"""Full decoded stereo model (port of ``leastereo_tpu/models/leastereo.py``;
+reference ``retrain/LEAStereo.py:12-52``).
+
+``disparity = LEAStereo(left, right)``: the shared-weight Feature Net on both
+views, the fused cost-volume stem and the 3-D Matching Net, then the head:
+
+* eval, not ``fast_head``, not ``return_entropy``, and the fused-head gate
+  admits the shape: the ``last_3`` conv and the soft-argmin run as one CUDA
+  kernel (``ops/fused_head.py``);
+* otherwise the ``last_3`` conv (cuDNN), then ``soft_argmin_fast`` when
+  ``fast_head`` is set, else the band kernel (``ops/fused_softargmin.py``).
+  ``pallas_head=False`` selects the plain ``soft_argmin`` instead of either
+  kernel.
+
+A refused fused head is logged once per reason and falls to the band kernel;
+a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 170``)
+raises rather than run the plain version on the card. On a CPU tensor each
+kernel wrapper runs its plain version. Inputs are NHWC
+``(B, H, W, 3)`` with H, W divisible by 3 (and by 12 at 1/3 resolution for
+the deepest matching level), as in the JAX model; the output is ``(B, H, W)``
+fp32, or ``(disp, entropy)`` with ``return_entropy``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+
+import torch
+import torch.nn as nn
+
+from ..ops.fused_head import conv_soft_argmin_fused, fused_head_gate_reason
+from ..ops.fused_softargmin import soft_argmin_fused
+from ..ops.softargmin import disparity_entropy, soft_argmin, soft_argmin_fast
+from .feature_net import FeatureNet
+from .genotypes import BEST_SCENEFLOW, Architecture
+from .matching_net import MatchingNet
+
+__all__ = ["LEAStereoConfig", "LEAStereo", "best_sceneflow_model"]
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass(frozen=True)
+class LEAStereoConfig:
+    """Shape hyper-parameters (reference ``config_utils/leastereo_args.py:4-13``);
+    field names as in the JAX ``LEAStereoConfig``."""
+
+    maxdisp: int = 192
+    fea_filter_multiplier: int = 8
+    fea_block_multiplier: int = 4
+    fea_steps: int = 3
+    mat_filter_multiplier: int = 8
+    mat_block_multiplier: int = 4
+    mat_steps: int = 3
+    compute_dtype: str = "bfloat16"
+    fast_head: bool = False  # soft_argmin_fast serving head
+    # Fuse the cost volume into the matching stem0 (ops/fused_stem.py);
+    # False builds the explicit volume.
+    fused_stem: bool = True
+    # Use the CUDA heads (fused head, else band kernel); False runs the
+    # plain soft_argmin after the last_3 conv.
+    pallas_head: bool = True
+    # Also return the disparity-entropy confidence map (predict --confidence).
+    return_entropy: bool = False
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return getattr(torch, self.compute_dtype)
+
+
+class LEAStereo(nn.Module):
+    def __init__(
+        self,
+        feature_arch: Architecture,
+        matching_arch: Architecture,
+        config: LEAStereoConfig = LEAStereoConfig(),
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        cfg = config
+        self.config = cfg
+        self.feature = FeatureNet(
+            feature_arch, cfg.fea_filter_multiplier, cfg.fea_block_multiplier, cfg.fea_steps, generator
+        )
+        self.matching = MatchingNet(
+            matching_arch,
+            cfg.fea_filter_multiplier * cfg.fea_block_multiplier,
+            cfg.mat_filter_multiplier,
+            cfg.mat_block_multiplier,
+            cfg.mat_steps,
+            generator=generator,
+        )
+        self._gate_warned: set[str] = set()
+
+    def _warn_once(self, msg: str) -> None:
+        if msg not in self._gate_warned:
+            self._gate_warned.add(msg)
+            logger.warning(msg)
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor):
+        """NHWC ``(B, H, W, 3)`` images -> ``(B, H, W)`` fp32 disparity."""
+        cfg = self.config
+        dtype = cfg.dtype
+        b = left.shape[0]
+        # Shared weights across views (reference retrain/LEAStereo.py:31-32):
+        # both views go through the feature net as one batch.
+        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype)
+        feats = self.feature(x)
+        vol = self.matching(feats[:b], feats[b:], cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
+
+        last_3 = self.matching.last_3
+        kernel = last_3.conv.weight.to(dtype)
+        if cfg.pallas_head and not self.training and not cfg.fast_head and not cfg.return_entropy:
+            reason = fused_head_gate_reason(vol.shape[1], vol.shape[2], cfg.maxdisp, vol.dtype)
+            if reason is None:
+                return conv_soft_argmin_fused(vol, kernel, cfg.maxdisp)
+            self._warn_once(f"fused head disabled: {reason}")
+        cost = last_3(vol)[:, 0]  # (B, D, h, w)
+        if cfg.fast_head:
+            disp = soft_argmin_fast(cost, cfg.maxdisp)
+        elif cfg.pallas_head:
+            # No plain fallback here: a CUDA cost the band kernel refuses
+            # raises in the wrapper with its reason.
+            disp = soft_argmin_fused(cost, cfg.maxdisp)
+        else:
+            disp = soft_argmin(cost, cfg.maxdisp)
+        if cfg.return_entropy:
+            return disp, disparity_entropy(cost, cfg.maxdisp)
+        return disp
+
+
+def best_sceneflow_model(
+    config: LEAStereoConfig = LEAStereoConfig(), device: str | torch.device | None = None, seed: int = 0
+) -> LEAStereo:
+    """The shipped best-searched architecture (reference
+    ``run/sceneflow/best/architecture/*.npy``), initialised from ``seed``, in
+    eval mode, on ``device``. ``None`` means the CUDA card; without one this
+    raises rather than run on the CPU unasked."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("CUDA is not available: pass device='cpu' to run the model on the CPU")
+        device = "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    model = LEAStereo(BEST_SCENEFLOW["feature"], BEST_SCENEFLOW["matching"], config, gen)
+    return model.to(device).eval()

@@ -1,0 +1,123 @@
+"""Decoded 3-D Matching Net with long skip connections (port of
+``leastereo_tpu/models/matching_net.py``; reference
+``retrain/skip_model_3d.py:78-174``).
+
+Filters the stereo features through the fused cost-volume stem0, stem1,
+``num_layers`` decoded 3-D cells (with the long skips
+``conv1(cat(out1, out4))`` feeding cell 5 and ``conv2(cat(out4, out8))``
+feeding cell 9) and the level-dependent upsample head. ``forward`` ends at
+the pre-head volume; the ``last_3`` conv (C -> 1) is applied by the caller's
+head (``models/leastereo.py``), which may fuse it into a kernel.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from ..ops.convbr import ConvBR
+from ..ops.cost_volume import build_cost_volume
+from ..ops.fused_stem import fused_cost_volume_stem
+from ..ops.resize import resize3d
+from .cells import FixedCell
+from .genotypes import FILTER_SCALE, Architecture
+
+__all__ = ["MatchingNet", "FusedStem0", "DEFAULT_SKIPS"]
+
+# (source_cell, target_cell): after target's concat, fuse with source's
+# concat through a 3x3x3 ConvBR (reference skip_model_3d.py:150-156). The
+# k-th skip's conv is named ``conv{k+1}`` as in the reference.
+DEFAULT_SKIPS = ((1, 4), (4, 8))
+
+
+class FusedStem0(ConvBR):
+    """Cost volume + stem0 ConvBR (conv + BN + ReLU). With ``fused``, in eval,
+    the volume is never built (``ops/fused_stem.py``): the BN scale folds into
+    the kernel and bias + ReLU ride the assembly's epilogue. Otherwise, and in
+    training, the explicit volume goes through the ConvBR. Same ``conv``/``bn``
+    parameters either way."""
+
+    def __init__(self, feature_channels: int, out_channels: int, generator: torch.Generator | None = None):
+        super().__init__(2 * feature_channels, out_channels, 3, 1, 1, ndim=3, generator=generator)
+
+    def forward(self, left: torch.Tensor, right: torch.Tensor, num_disp: int, fused: bool = True):
+        if not fused or self.training:
+            return super().forward(build_cost_volume(left, right, num_disp))
+        weight, bias = self.folded()
+        return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True)
+
+
+class MatchingNet(nn.Module):
+    def __init__(
+        self,
+        genotype: Architecture,
+        feature_channels: int,
+        filter_multiplier: int = 8,
+        block_multiplier: int = 4,
+        steps: int = 3,
+        skips: tuple[tuple[int, int], ...] = DEFAULT_SKIPS,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        kw = dict(ndim=3, generator=generator)
+        ifm = filter_multiplier * block_multiplier
+        self.level = genotype.network_path[-1]
+        self.stem0 = FusedStem0(feature_channels, ifm, generator=generator)
+        self.stem1 = ConvBR(ifm, ifm, 3, 1, 1, **kw)
+
+        self._skips = {tgt: (src, f"conv{k + 1}") for k, (src, tgt) in enumerate(skips)}
+        cells = []
+        concat_ch = []
+        c_pp, c_p = ifm, ifm
+        for i, level in enumerate(genotype.network_path):
+            c_out = filter_multiplier * FILTER_SCALE[level]
+            cells.append(
+                FixedCell(steps, block_multiplier, c_pp, c_p, c_out, genotype.downup(i), genotype, **kw)
+            )
+            concat_ch.append(block_multiplier * c_out)
+            c_pp, c_p = c_p, concat_ch[-1]
+            if i in self._skips:
+                src, name = self._skips[i]
+                self.add_module(name, ConvBR(concat_ch[src] + concat_ch[i], ifm * 2, 3, 1, 1, **kw))
+                c_p = ifm * 2
+        self.cells = nn.ModuleList(cells)
+
+        c = concat_ch[-1]
+        if self.level >= 3:
+            self.last_24 = ConvBR(c, ifm * 4, 1, 1, 0, **kw)
+            c = ifm * 4
+        if self.level >= 2:
+            self.last_12 = ConvBR(c, ifm * 2, 1, 1, 0, **kw)
+            c = ifm * 2
+        if self.level >= 1:
+            self.last_6 = ConvBR(c, ifm, 1, 1, 0, **kw)
+            c = ifm
+        self.last_3 = ConvBR(c, 1, 3, 1, 1, bn=False, relu=False, **kw)
+
+    def forward(
+        self, left: torch.Tensor, right: torch.Tensor, num_disp: int, fused_stem: bool = True
+    ) -> torch.Tensor:
+        """NCHW features ``(B, C, h, w)`` of both views -> the pre-head volume
+        ``(B, ifm, num_disp, h, w)`` (input of ``last_3``)."""
+        d, h, w = num_disp, left.shape[2], left.shape[3]
+        stem0 = self.stem0(left, right, num_disp, fused=fused_stem)
+        stem1 = self.stem1(stem0)
+
+        concats: list[torch.Tensor] = []
+        s0, s1 = stem0, stem1
+        for i, cell in enumerate(self.cells):
+            prev_raw, concat = cell(s0, s1)
+            concats.append(concat)
+            if i in self._skips:
+                src, name = self._skips[i]
+                concat = getattr(self, name)(torch.cat([concats[src], concat], dim=1))
+            s0, s1 = prev_raw, concat
+
+        last = concats[-1]
+        if self.level >= 3:
+            last = resize3d(self.last_24(last), (d // 4, h // 4, w // 4))
+        if self.level >= 2:
+            last = resize3d(self.last_12(last), (d // 2, h // 2, w // 2))
+        if self.level >= 1:
+            last = resize3d(self.last_6(last), (d, h, w))
+        return last

@@ -1,0 +1,118 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a plain
+C interface, at first use, into ``leastereo_tpu_torch/build/`` (listed in
+``.gitignore``), and loaded with ``ctypes``. Nothing here runs at import
+time: the CPU tests import every module on machines without ``nvcc``.
+The library is rebuilt when a source is newer than it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+__all__ = ["load_kernels", "BUILD_DIR", "check", "band_smem_bytes", "head_smem_bytes", "SMEM_LIMIT"]
+
+# Tile geometry of csrc/soft_argmin_heads.cu: TH x TW low-res pixels per
+# block, DCHUNK disparities per conv work item of the fused head. The
+# shared-memory formulas below are checked against the library's own when it
+# loads.
+TILE_H, TILE_W, DCHUNK = 8, 32, 8
+SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper (227 KB)
+
+
+def band_smem_bytes(d: int) -> int:
+    """Shared memory of the band kernel: the fp32 cost tile [D][TH+2][TW+2]."""
+    return 4 * d * (TILE_H + 2) * (TILE_W + 2)
+
+
+def head_smem_bytes(channels: int, d: int) -> int:
+    """Shared memory of the fused head: cost tile, one staged input channel
+    [ceil8(D)+2][TH+4][TW+4] and the conv weights, all fp32."""
+    dp = -(-d // DCHUNK) * DCHUNK
+    return band_smem_bytes(d) + 4 * ((dp + 2) * (TILE_H + 4) * (TILE_W + 4) + 27 * channels)
+
+
+_PKG = pathlib.Path(__file__).resolve().parents[1]
+_CSRC = _PKG / "csrc"
+_LIB_NAME = "libleastereo_kernels.so"
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+BUILD_DIR = _PKG / "build"
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = pathlib.Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(f"nvcc not found under {home}/bin or on PATH; the CUDA kernels cannot be built")
+    return found
+
+
+def _build(lib_path: pathlib.Path, sources: list[pathlib.Path]) -> None:
+    lib_path.parent.mkdir(parents=True, exist_ok=True)
+    # Compile to a temporary name and rename: concurrent first uses (test
+    # workers) never load a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    (lib_path.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    os.replace(tmp, lib_path)
+
+
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library, built on first use; argument types declared."""
+    global _lib
+    if _lib is not None:
+        return _lib
+    sources = sorted(_CSRC.glob("*.cu"))
+    lib_path = BUILD_DIR / _LIB_NAME
+    newest = max(s.stat().st_mtime for s in sources)
+    if not lib_path.exists() or lib_path.stat().st_mtime < newest:
+        _build(lib_path, sources)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.lst_error_string.argtypes = [i]
+    lib.lst_error_string.restype = ctypes.c_char_p
+    lib.lst_band_smem_bytes.argtypes = [i]
+    lib.lst_band_smem_bytes.restype = ctypes.c_longlong
+    lib.lst_head_smem_bytes.argtypes = [i, i]
+    lib.lst_head_smem_bytes.restype = ctypes.c_longlong
+    lib.lst_band_soft_argmin.argtypes = [p, p, i, i, i, i, p]
+    lib.lst_band_soft_argmin.restype = i
+    lib.lst_head_soft_argmin.argtypes = [p, i, p, p, i, i, i, i, i, p]
+    lib.lst_head_soft_argmin.restype = i
+    # The gates decide with the formulas above: hold them to the built layout
+    # (D not a multiple of DCHUNK included) so a gate never admits a shape
+    # the kernel cannot launch.
+    for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 170)):
+        host = (band_smem_bytes(d), head_smem_bytes(c, d))
+        built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d))
+        if host != built:
+            raise RuntimeError(f"shared memory (band, head) at C={c}, D={d}: library {built} != host {host}")
+    _lib = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    if err != 0:
+        msg = load_kernels().lst_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,90 @@
+"""Band kernel: fused 3x upsample + softmin + soft-argmin on an existing cost.
+
+Port of ``leastereo_tpu/ops/pallas_softargmin.py``. The CUDA kernel
+(``csrc/soft_argmin_heads.cu``, ``lst_band_soft_argmin``) replaces the Pallas
+``_band_kernel`` (``pallas_softargmin.py:45-98``): the same real-number math
+as the plain :func:`~leastereo_tpu_torch.ops.softargmin.soft_argmin`, in one
+pass that reads the ``(B, D, h, w)`` cost once and writes the ``(B, 3h, 3w)``
+map, where the plain version holds several ``(B, D, 3h, 3w)`` fp32 phase
+tensors in device memory.
+
+On the H100 the kernel is bound by its 3D exponentials per output pixel
+(special-function units), not by its 15 MB of traffic; a block keeps a
+``D x (TH+2) x (TW+2)`` cost tile in shared memory and each thread produces
+the 9 output phases of one low-res pixel in registers, so every exponential
+is computed once and nothing intermediate leaves the chip.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .softargmin import soft_argmin
+
+__all__ = ["band_gate_reason", "soft_argmin_cuda", "soft_argmin_fused"]
+
+
+def band_gate_reason(d: int, maxdisp: int) -> str | None:
+    """``None`` when the band kernel takes a ``(B, D, h, w)`` cost; else why not."""
+    if maxdisp != 3 * d:
+        return f"maxdisp {maxdisp} != 3 * D ({d})"
+    if _build.band_smem_bytes(d) > _build.SMEM_LIMIT:
+        return f"cost tile needs {_build.band_smem_bytes(d)} B of shared memory > {_build.SMEM_LIMIT}"
+    return None
+
+
+def soft_argmin_cuda(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """``(B, D, h, w)`` cost -> ``(B, 3h, 3w)`` fp32 disparity.
+
+    A CUDA tensor must be fp32 and contiguous and runs the band kernel; a CPU
+    tensor takes the plain :func:`soft_argmin`. ``soft_argmin_cuda.launches``
+    counts the kernel launches.
+    """
+    if cost.ndim != 4:
+        raise ValueError(f"expected a (B, D, h, w) cost, got shape {tuple(cost.shape)}")
+    if cost.device.type == "cpu":
+        return soft_argmin(cost, maxdisp)
+    if cost.device.type != "cuda":
+        raise ValueError(f"unsupported device {cost.device}")
+    b, d, h, w = cost.shape
+    reason = band_gate_reason(d, maxdisp)
+    if reason is not None:
+        raise ValueError(f"band kernel refuses this cost: {reason}")
+    if cost.dtype != torch.float32 or not cost.is_contiguous():
+        raise ValueError(f"band kernel takes a contiguous float32 cost, got {cost.dtype}")
+    lib = _build.load_kernels()
+    out = torch.empty((b, 3 * h, 3 * w), dtype=torch.float32, device=cost.device)
+    stream = torch.cuda.current_stream(cost.device).cuda_stream
+    with torch.cuda.device(cost.device):
+        err = lib.lst_band_soft_argmin(cost.data_ptr(), out.data_ptr(), b, d, h, w, stream)
+    _build.check(err, "band soft-argmin kernel")
+    soft_argmin_cuda.launches += 1
+    return out
+
+
+soft_argmin_cuda.launches = 0
+
+
+class _SoftArgminFn(torch.autograd.Function):
+    """Kernel forward; backward re-derived through the plain version, as the
+    JAX ``soft_argmin_fused`` custom_vjp does."""
+
+    @staticmethod
+    def forward(ctx, cost, maxdisp):
+        ctx.save_for_backward(cost)
+        ctx.maxdisp = maxdisp
+        return soft_argmin_cuda(cost.float().contiguous(), maxdisp)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (cost,) = ctx.saved_tensors
+        with torch.enable_grad():
+            c = cost.detach().requires_grad_(True)
+            (g,) = torch.autograd.grad(soft_argmin(c, ctx.maxdisp), c, grad)
+        return g, None
+
+
+def soft_argmin_fused(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """Drop-in :func:`soft_argmin` with the band kernel's forward."""
+    return _SoftArgminFn.apply(cost, maxdisp)

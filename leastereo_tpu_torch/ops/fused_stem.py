@@ -1,0 +1,144 @@
+"""Fused cost-volume construction + matching-stem convolution
+(port of ``leastereo_tpu/ops/fused_stem.py``, unpacked form).
+
+The concat volume (``ops/cost_volume.py``) is a shear of two 2-D signals::
+
+    vol[:C, d, h, w] = L[h, w]      * 1[w >= d]
+    vol[C:, d, h, w] = R[h, w - d]  * 1[w >= d]
+
+so a 3x3x3 convolution over it collapses exactly into 2-D convolutions of
+``L`` and ``R`` plus an assembly that depends only on the diagonal offset
+``j = w - d`` (derivation in the JAX module's docstring):
+
+* Left half: per depth tap ``kd`` the mask suppresses the ``t = clamp(kd - j,
+  0, 3)`` left-most column taps, so the left contribution at ``(d, w)`` is a
+  sum of partial-width convs ``P[t][kd]`` at column ``w``, chosen by ``j``'s
+  class (``j <= -3, -2, -1, 0, 1, >= 2``) and by which ``kd`` are inside the
+  depth range at ``d``.
+* Right half: tap ``kd`` reads ``CR[kd]`` (a conv of ``R``) at column
+  ``j - kd + 3``; summed over the valid ``kd`` this is one 2-D map ``G`` of
+  ``(h, j)``. One wrong read, the ``kw = +1`` tap at ``w = W-1`` which should
+  see the volume's zero column ``w' = W``, is subtracted afterwards.
+
+The JAX function unrolls the ``num_disp`` planes statically, which in eager
+PyTorch would be hundreds of small launches. Here the assembly is vectorised:
+both halves are one ``index_select`` each from small tables of 2-D maps, with
+index tensors over ``(d, h, w)``, written straight into the NCDHW output.
+The volume never exists. Not a kernel of the TPU build either: it stays
+PyTorch (cuDNN 2-D convs plus gathers).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["fused_cost_volume_stem"]
+
+_N_CLASSES = 6  # diagonal classes j <= -3, -2, -1, 0, 1, >= 2
+
+
+def _by_kd(wt: torch.Tensor) -> torch.Tensor:
+    """``(F, C, kd, kh, kw') -> (3F, C, kh, kw')``: the three depth taps as
+    output-channel blocks of one 2-D conv (block ``kd`` at rows ``kd*F``)."""
+    f, c, kd, kh, kw = wt.shape
+    return wt.permute(2, 0, 1, 3, 4).reshape(kd * f, c, kh, kw)
+
+
+def _conv_kd(x: torch.Tensor, wt: torch.Tensor, pad: tuple[int, int, int, int]) -> torch.Tensor:
+    """2-D conv of ``x`` (padded by ``pad``, F.pad order) with the three depth
+    taps of ``wt``; returns ``(B, 3, F, H', W')``."""
+    y = F.conv2d(F.pad(x, pad), _by_kd(wt))
+    return y.view(y.shape[0], 3, wt.shape[0], *y.shape[2:])
+
+
+def fused_cost_volume_stem(
+    left: torch.Tensor,
+    right: torch.Tensor,
+    kernel: torch.Tensor,
+    num_disp: int,
+    bias: torch.Tensor | None = None,
+    relu: bool = False,
+) -> torch.Tensor:
+    """``conv3d(build_cost_volume(left, right, num_disp), kernel, padding=1)``
+    without materialising the volume.
+
+    Args:
+      left, right: NCHW ``(B, C, H, W)`` feature maps.
+      kernel: OIDHW ``(F, 2C, 3, 3, 3)`` stem kernel.
+      num_disp: volume depth ``D``.
+      bias: optional ``(F,)`` epilogue bias (the eval-folded BN bias).
+      relu: apply the stem ReLU in the same epilogue.
+
+    Returns:
+      NCDHW ``(B, F, D, H, W)``.
+    """
+    b, c, h, w = left.shape
+    f = kernel.shape[0]
+    nd = num_disp
+    if tuple(kernel.shape[1:]) != (2 * c, 3, 3, 3):
+        raise ValueError(f"expected ({f}, {2 * c}, 3, 3, 3) kernel, got {tuple(kernel.shape)}")
+    kernel = kernel.to(left.dtype)
+    wl, wr = kernel[:, :c], kernel[:, c:]
+    dev = left.device
+
+    # Partial-width convs of L: p[t][:, kd] drops the t left-most kw taps.
+    p = [
+        _conv_kd(left, wl, (1, 1, 1, 1)),
+        _conv_kd(left, wl[..., 1:], (0, 1, 1, 1)),
+        _conv_kd(left, wl[..., 2:], (-1, 1, 1, 1)),
+    ]
+    # CR[:, kd][h, j'] = sum_{kh,kw} wr * R[h+kh-1, j'+kw-3], j' in [0, W+4),
+    # left-padded by D zero columns so any diagonal reads in range.
+    cr = F.pad(_conv_kd(right, wr, (3, 3, 1, 1)), (nd, 0))
+    corr = _conv_kd(right, wr[..., 2:], (0, 0, 1, 1))  # the kw = +1 tap alone
+
+    # Plane types: which depth taps kd land inside [0, D) at plane d.
+    valid_sets: list[tuple[int, ...]] = []
+    ptype = []
+    for d in range(nd):
+        v = tuple(kd for kd in range(3) if 0 <= d + kd - 1 < nd)
+        if v not in valid_sets:
+            valid_sets.append(v)
+        ptype.append(valid_sets.index(v))
+    n_types = len(valid_sets)
+
+    zero = left.new_zeros((b, f, h, w))
+    left_maps, right_maps = [], []
+    for v in valid_sets:
+        for k in range(_N_CLASSES):
+            j = k - 3  # taps suppressed at this diagonal: t = max(kd - j, 0)
+            terms = [p[max(kd - j, 0)][:, kd] for kd in v if kd - j < 3]
+            left_maps.append(sum(terms[1:], terms[0]) if terms else zero)
+        g = [cr[:, kd, :, :, 4 - kd : 4 - kd + w + nd - 1] for kd in v]
+        right_maps.append(sum(g[1:], g[0]))
+    wg = w + nd - 1
+    left_tab = torch.stack(left_maps, dim=2).reshape(b, f, -1)  # (B, F, T*6*H*W)
+    right_tab = torch.stack(right_maps, dim=2).reshape(b, f, -1)  # (B, F, T*H*wg)
+
+    pt = torch.tensor(ptype, device=dev).view(nd, 1, 1)
+    dd = torch.arange(nd, device=dev).view(nd, 1, 1)
+    hh = torch.arange(h, device=dev).view(1, h, 1)
+    ww = torch.arange(w, device=dev).view(1, 1, w)
+    cls = (ww - dd + 3).clamp(0, _N_CLASSES - 1)
+    idx_left = ((pt * _N_CLASSES + cls) * h + hh) * w + ww
+    idx_right = (pt * h + hh) * wg + (ww - dd + nd - 1)
+    out = left_tab.index_select(2, idx_left.reshape(-1))
+    out += right_tab.index_select(2, idx_right.reshape(-1))
+    out = out.view(b, f, nd, h, w)
+
+    # Right-edge fix: at w = W-1 the kw = +1 tap read R[u], u = W+1-d-kd,
+    # where the volume holds its zero column w' = W.
+    fix = None
+    for kd in range(3):
+        u = w + 1 - kd - torch.arange(nd, device=dev)
+        ok = (u >= 0) & (u < w) & (dd.view(-1) + kd - 1 >= 0) & (dd.view(-1) + kd - 1 < nd)
+        term = corr[:, kd].index_select(3, u.clamp(0, w - 1)) * ok.to(left.dtype)
+        fix = term if fix is None else fix + term
+    out[..., w - 1] -= fix.permute(0, 1, 3, 2)
+
+    if bias is not None:
+        out += bias.to(out.dtype).view(1, f, 1, 1, 1)
+    if relu:
+        out.relu_()
+    return out

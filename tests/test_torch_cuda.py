@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Each kernel (``leastereo_tpu_torch/csrc/soft_argmin_heads.cu``) is built from
+source on first use and held against its plain PyTorch version evaluated in
+float64 on the same inputs, at small ragged shapes and at the KITTI head
+shape. Every test skips without a CUDA card. This file imports neither JAX
+nor the JAX package, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_cuda, conv_soft_argmin_reference
+from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
+from leastereo_tpu_torch.ops.softargmin import soft_argmin
+
+pytestmark = pytest.mark.cuda
+
+# fp32 kernels against float64: the summation order and __expf differ, 2e-3 px.
+TOL_PX = 2e-3
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _peaky_cost(b, d, h, w, seed=0):
+    rng = np.random.RandomState(seed)
+    best = rng.randint(0, d, size=(b, 1, h, w))
+    planes = np.arange(d)[None, :, None, None]
+    return (0.35 * np.abs(planes - best) + 0.8 * rng.randn(b, d, h, w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 24), (2, 16, 20, 40), (1, 64, 128, 416)])
+def test_band_kernel(dev, shape):
+    b, d, h, w = shape
+    cost = torch.from_numpy(_peaky_cost(b, d, h, w)).to(dev)
+    n = soft_argmin_cuda.launches
+    got = soft_argmin_cuda(cost, 3 * d)
+    torch.cuda.synchronize()
+    assert soft_argmin_cuda.launches == n + 1
+    ref = soft_argmin(cost.double(), 3 * d)
+    assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 8, 16, 24, 32), (2, 16, 20, 40, 16), (1, 64, 32, 64, 32)])
+def test_fused_head(dev, shape, dtype):
+    b, d, h, w, c = shape
+    rng = np.random.RandomState(0)
+    vol = torch.from_numpy((rng.randn(b, c, d, h, w) * 0.5).astype(np.float32)).to(dev, dtype)
+    kern = torch.from_numpy((rng.randn(1, c, 3, 3, 3) * 0.2).astype(np.float32)).to(dev)
+    n = conv_soft_argmin_cuda.launches
+    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
+    torch.cuda.synchronize()
+    assert conv_soft_argmin_cuda.launches == n + 1
+    # bf16 volumes: the plain version sees the same bf16 values, upcast.
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
+    assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+def test_wrappers_raise_instead_of_falling_back(dev):
+    with pytest.raises(ValueError):
+        soft_argmin_cuda(torch.zeros(1, 8, 16, 16, dtype=torch.float64, device=dev), 24)
+    with pytest.raises(ValueError, match="shared memory"):
+        soft_argmin_fused(torch.zeros(1, 171, 4, 4, device=dev), 513)
+    with pytest.raises(ValueError):
+        conv_soft_argmin_cuda(
+            torch.zeros(1, 4, 8, 16, 16, dtype=torch.float16, device=dev),
+            torch.zeros(1, 4, 3, 3, 3, device=dev),
+            24,
+        )
+
+
+def test_model_raises_on_refused_cost(dev):
+    """maxdisp 50 gives D = 16 != 50 / 3: the fused head falls to the band
+    kernel, which refuses the CUDA cost; the model raises, launching nothing."""
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=50, compute_dtype="float32"), device=dev)
+    x = torch.from_numpy(np.random.RandomState(0).randn(1, 48, 96, 3).astype(np.float32)).to(dev)
+    n = soft_argmin_cuda.launches, conv_soft_argmin_cuda.launches
+    with torch.no_grad(), pytest.raises(ValueError, match="band kernel refuses"):
+        model(x, x)
+    assert (soft_argmin_cuda.launches, conv_soft_argmin_cuda.launches) == n
