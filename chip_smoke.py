@@ -7,16 +7,22 @@ Phases, each printing one JSON line and raising on failure (nothing is
 caught, so any failure exits non-zero):
 
 1. card: name and power limit (nvidia-smi); TF32 off for the fp32 phases.
-2. build: both CUDA kernels built from leastereo_tpu_torch/csrc with nvcc.
+2. build: the CUDA kernels built from leastereo_tpu_torch/csrc with nvcc.
 3. kernels: each kernel on the card at the KITTI main-path shapes against
    its plain PyTorch version evaluated in float64, on peaky (trained-like)
-   and diffuse inputs, plus kernel and plain-version times.
+   and diffuse inputs: the sm90 fused head (bf16 volume), the first fused
+   head design (fp32 and bf16 volumes) and the band kernel; then their times
+   on one bf16 input beside the unfused yardstick (cuDNN ``last_3`` conv +
+   band kernel), and the first design's time at shapes that show what
+   limits it.
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
-   eval, random seeded weights: the default forward (fused head kernel),
-   timed for >= 10 s, then the ``return_entropy`` forward (band kernel).
-   Launch counts are zeroed just before and read just after.
+   eval, random seeded weights: the default forward (sm90 fused head, once
+   per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
+   kernel). Launch counts are zeroed just before and read just after.
 5. layers and profile: per-layer times and the device's busy share.
-6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48.
+6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48
+   (the first fused head design and the band kernel; counts zeroed just
+   before and read just after).
 7. gate refusal: a cost the band kernel refuses raises on the card.
 
 Then the kernel table, the card line and, last, the result line. Exits
@@ -45,7 +51,7 @@ PEAK_SFU_S = 16 * 132 * 1.98e9
 
 # Kernel-name patterns for the per-frame device-time breakdown (first match wins).
 KERNEL_GROUPS = (
-    ("head kernels (this port)", ("head_kernel", "band_kernel")),
+    ("head kernels (this port)", ("head_kernel", "head_sm90_kernel", "band_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm", "sm90_", "sm80_")),
     ("trilinear/bilinear resize", ("upsample",)),
@@ -53,6 +59,8 @@ KERNEL_GROUPS = (
     ("elementwise (add, relu, cast, cat)", ("elementwise", "CatArray", "reduce")),
 )
 TOL_KERNEL_PX = 2e-3  # kernels against float64 plain versions
+SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
+SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
 
 
@@ -123,7 +131,12 @@ def main() -> int:
 
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
     from leastereo_tpu_torch.ops import _build
-    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_cuda, conv_soft_argmin_reference
+    from leastereo_tpu_torch.ops.fused_head import (
+        conv_soft_argmin_cuda,
+        conv_soft_argmin_reference,
+        conv_soft_argmin_simt,
+        conv_soft_argmin_sm90,
+    )
     from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
     from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
@@ -144,25 +157,30 @@ def main() -> int:
     _build.load_kernels()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln]
-    emit({"phase": "build", "seconds": build_s, "built": ["fused_head", "band_soft_argmin"],
-          "source": "leastereo_tpu_torch/csrc/soft_argmin_heads.cu", "ptxas": ptxas})
+    emit({"phase": "build", "seconds": build_s, "built": ["fused_head_sm90", "fused_head", "band_soft_argmin"],
+          "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions at the main path's shapes
     b, c, d, h, w, maxdisp = 1, 32, 64, 128, 416, 192
     gen = torch.Generator(device=dev).manual_seed(0)
-    head_err, band_err = 0.0, 0.0
+    head_err, sm90_err, band_err = 0.0, 0.0, 0.0
     for kind in ("peaky", "diffuse"):
         vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
-        for dt in (torch.float32, torch.bfloat16):
+        for name, fn, dt in (("fused_head_sm90", conv_soft_argmin_sm90, torch.bfloat16),
+                             ("fused_head", conv_soft_argmin_simt, torch.float32),
+                             ("fused_head", conv_soft_argmin_simt, torch.bfloat16)):
             vol = vol32.to(dt)
-            got = conv_soft_argmin_cuda(vol, kern, maxdisp)
+            got = fn(vol, kern, maxdisp)
             ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
             err = (got.double() - ref).abs().max().item()
-            emit({"phase": "kernel_check", "kernel": "fused_head", "input": kind, "dtype": str(dt),
+            emit({"phase": "kernel_check", "kernel": name, "input": kind, "dtype": str(dt),
                   "shape": list(vol.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
             if not err < TOL_KERNEL_PX:
-                raise AssertionError(f"fused head {kind} {dt}: {err} px")
-            head_err = max(head_err, err)
+                raise AssertionError(f"{name} {kind} {dt}: {err} px")
+            if name == "fused_head_sm90":
+                sm90_err = max(sm90_err, err)
+            else:
+                head_err = max(head_err, err)
             del ref
         cost = peaky_cost(gen, b, d, h, w, dev) if kind == "peaky" else torch.randn(b, d, h, w, generator=gen, device=dev)
         got = soft_argmin_cuda(cost, maxdisp)
@@ -174,17 +192,60 @@ def main() -> int:
         band_err = max(band_err, err)
 
     vol = vol32.to(torch.bfloat16)  # main path: bf16 volume
-    head_ms = cuda_ms(lambda: conv_soft_argmin_cuda(vol, kern, maxdisp))
+    kern16 = kern.to(torch.bfloat16)
+    # Both fused heads and the unfused yardstick (cuDNN last_3 conv, then the
+    # band kernel; the port does not run this pair on this route) in turns.
+    unfused = lambda: soft_argmin_cuda(torch.nn.functional.conv3d(vol, kern16, padding=1)[:, 0].float(), maxdisp)
+    sm90_ms = [cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp))]
+    head_ms = [cuda_ms(lambda: conv_soft_argmin_simt(vol, kern, maxdisp))]
+    unfused_ms = [cuda_ms(unfused)]
+    head_ms.append(cuda_ms(lambda: conv_soft_argmin_simt(vol, kern, maxdisp)))
+    sm90_ms.append(cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp)))
+    unfused_ms.append(cuda_ms(unfused))
+    sm90_bf16w_ms = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern16, maxdisp))
+    sm90_ms, head_ms, unfused_ms = min(sm90_ms), min(head_ms), min(unfused_ms)
     head_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
     band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
     band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
     out_bytes = b * 9 * h * w * 4
     exps = b * 9 * h * w * 3 * d
-    head_bound = bound(vol.numel() * 2 + kern.numel() * 4 + out_bytes, 2 * 27 * c * b * d * h * w, torch.bfloat16, exps)
+    head_flops = 2 * 27 * c * b * d * h * w
+    head_bound = bound(vol.numel() * 2 + kern.numel() * 4 + out_bytes, head_flops, torch.bfloat16, exps)
     band_bound = bound(cost.numel() * 4 + out_bytes, 0, torch.float32, exps)
-    emit({"phase": "kernel_times", "card": card, "fused_head_ms": head_ms, "fused_head_plain_ms": head_plain_ms,
-          "band_ms": band_ms, "band_plain_ms": band_plain_ms})
-    del vol32, vol, cost
+    emit({"phase": "kernel_times", "card": card, "fused_head_sm90_ms": sm90_ms,
+          "fused_head_sm90_bf16_weights_ms": sm90_bf16w_ms, "fused_head_pr1_ms": head_ms,
+          "unfused_ms": unfused_ms, "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
+          "band_ms": band_ms, "band_plain_ms": band_plain_ms, "band_bound_ms": band_bound[0],
+          "note": "ms: best of two turns (sm90, first design, unfused, first design, sm90, unfused); "
+                  "fused heads take the fp32 kernel, the unfused cuDNN conv its bf16 rounding"})
+
+    # What limits the first design (head_kernel<bf16>, 8 x 32 tiles, one
+    # 512-thread block per SM by shared memory and registers): its time at
+    # half the rows (104 blocks, one wave on 132 SMs, against 208 in two),
+    # at half the channels, and on an fp32 volume, plus the rates its KITTI
+    # time implies. Shared-memory traffic counts its code's accesses: per
+    # block and channel, D * (TH+4)(TW+4) staged stores and, per work item
+    # ((TH+2)(TW+2) sites x ceil(D/8)), 90 slab loads and 8 tile updates.
+    v_h64 = vol[:, :, :, : h // 2].contiguous()
+    v_c16, k_c16 = vol[:, : c // 2].contiguous(), kern[:, : c // 2].contiguous()
+    v_f32 = vol.float()
+    th, tw, dch = _build.TILE_H, _build.TILE_W, _build.DCHUNK
+    blocks = b * -(-h // th) * -(-w // tw)
+    items = (th + 2) * (tw + 2) * -(-d // dch)
+    smem_bytes = 4 * blocks * c * (d * (th + 4) * (tw + 4) + items * (90 + 2 * dch))
+    emit({"phase": "head_profile", "card": card, "kernel": "head_kernel<bf16> (first design)",
+          "ms_kitti": head_ms, "ms_half_rows_one_wave": cuda_ms(lambda: conv_soft_argmin_simt(v_h64, kern, maxdisp)),
+          "ms_half_channels": cuda_ms(lambda: conv_soft_argmin_simt(v_c16, k_c16, maxdisp)),
+          "ms_fp32_volume": cuda_ms(lambda: conv_soft_argmin_simt(v_f32, kern, maxdisp)),
+          "blocks": blocks, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
+          "dram_gb_s": (vol.numel() * 2 + out_bytes) / head_ms / 1e6,
+          "smem_tb_s": smem_bytes / head_ms / 1e9,
+          "fma_tflop_s": 2 * 27 * blocks * c * items * dch / head_ms / 1e9,
+          "sm90_dram_gb_s": (vol.numel() * 2 + out_bytes) / sm90_ms / 1e6,
+          # The sm90 kernel (8 x 16 tiles, two blocks per SM): 27 x 16 = 432
+          # blocks at KITTI, 1.64 waves of 264 slots; half the rows, one wave.
+          "sm90_ms_half_rows": cuda_ms(lambda: conv_soft_argmin_sm90(v_h64, kern, maxdisp))})
+    del vol32, vol, cost, v_h64, v_c16, v_f32
     torch.cuda.empty_cache()
 
     # ---- 4. main path at KITTI
@@ -196,10 +257,10 @@ def main() -> int:
     calibrate_head(model, left, right)
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
-    conv_soft_argmin_cuda.launches = 0
-    soft_argmin_cuda.launches = 0
+    conv_soft_argmin_simt.launches = conv_soft_argmin_sm90.launches = soft_argmin_cuda.launches = 0
+    warmup = 3
     with torch.inference_mode():
-        for _ in range(3):  # warm-up: cuDNN algorithm selection, allocator
+        for _ in range(warmup):  # warm-up: cuDNN algorithm selection, allocator
             disp = model(left, right)
         torch.cuda.synchronize()
         witness = torch.zeros((), device=dev)
@@ -215,20 +276,24 @@ def main() -> int:
                     break
         elapsed = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        fused_launches = conv_soft_argmin_cuda.launches
+        default_launches = {"fused_head_sm90": conv_soft_argmin_sm90.launches, "fused_head": conv_soft_argmin_simt.launches}
         disp_conf, ent = model_conf(left, right)
         torch.cuda.synchronize()
-    launches = {"fused_head": conv_soft_argmin_cuda.launches, "band_soft_argmin": soft_argmin_cuda.launches}
+    launches = {"fused_head_sm90": conv_soft_argmin_sm90.launches, "fused_head": conv_soft_argmin_simt.launches,
+                "band_soft_argmin": soft_argmin_cuda.launches}
+    default_frames = warmup + frames
     d_np = disp.float().cpu().numpy()
     ok = (
         d_np.shape == (1, H, W) and np.isfinite(d_np).all() and d_np.min() >= 0 and d_np.max() <= maxdisp
         and tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and math.isfinite(witness.item())
-        and launches["fused_head"] > 0 and launches["band_soft_argmin"] > 0
+        and default_launches == {"fused_head_sm90": default_frames, "fused_head": 0}
+        and launches["band_soft_argmin"] == 1
     )
     emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
           "frames": frames, "seconds": elapsed, "frames_per_s": frames / elapsed, "ms_per_frame": 1e3 * elapsed / frames,
           "peak_mem_gb": peak_gb, "disp_min": float(d_np.min()), "disp_max": float(d_np.max()), "disp_std": float(d_np.std()),
-          "fused_head_launches_default": fused_launches, "launches": launches,
+          "default_forward_frames": default_frames, "default_forward_launches": default_launches,
+          "launches": launches,
           "confidence_disp_vs_default_max_px": (disp_conf.float() - disp.float()).abs().max().item()})
     if not ok:
         raise AssertionError("main path output or launch counts wrong")
@@ -245,6 +310,7 @@ def main() -> int:
             "fused_stem0_ms": cuda_ms(lambda: model.matching.stem0(fl, fr, d), iters=5),
             "matching_net_ms": cuda_ms(lambda: model.matching(fl, fr, d), iters=5),
             "fused_head_ms": cuda_ms(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp), iters=5),
+            "fused_head_pr1_ms": cuda_ms(lambda: conv_soft_argmin_simt(pre, k3, maxdisp), iters=5),
             "last_3_conv_plus_band_ms": cuda_ms(
                 lambda: soft_argmin_cuda(model.matching.last_3(pre)[:, 0].float(), maxdisp), iters=5),
         }
@@ -279,6 +345,7 @@ def main() -> int:
     left_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
     right_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
     results = {}
+    conv_soft_argmin_simt.launches = conv_soft_argmin_sm90.launches = soft_argmin_cuda.launches = 0
     kern_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32"), seed=1)
     calibrate_head(kern_model, left_s, right_s)
     state = kern_model.state_dict()
@@ -288,17 +355,20 @@ def main() -> int:
             LEAStereoConfig(maxdisp=md, compute_dtype="float32", return_entropy=entropy, pallas_head=False))
         k_model.load_state_dict(state)
         p_model.load_state_dict(state)
-        n_head, n_band = conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches
+        n_head, n_band = conv_soft_argmin_simt.launches, soft_argmin_cuda.launches
         with torch.inference_mode():
             got, ref = k_model(left_s, right_s), p_model(left_s, right_s)
         if entropy:
             got, ref = got[0], ref[0]
         used = "band_soft_argmin" if soft_argmin_cuda.launches > n_band else (
-            "fused_head" if conv_soft_argmin_cuda.launches > n_head else None)
+            "fused_head" if conv_soft_argmin_simt.launches > n_head else None)
         results["return_entropy" if entropy else "default"] = {
             "kernel": used, "max_abs_diff_px": (got - ref).abs().max().item(), "disp_std": ref.std().item()}
+    fp32_launches = {"fused_head": conv_soft_argmin_simt.launches, "fused_head_sm90": conv_soft_argmin_sm90.launches}
     emit({"phase": "model_kernel_vs_plain", "shape": [1, hs, ws], "maxdisp": md, "dtype": "float32",
-          "tol_px": TOL_MODEL_PX, **results})
+          "tol_px": TOL_MODEL_PX, "launches": fp32_launches, **results})
+    if fp32_launches != {"fused_head": 1, "fused_head_sm90": 0}:
+        raise AssertionError(f"fp32 default forward launched {fp32_launches}")
     for name, r in results.items():
         if r["kernel"] is None or not r["max_abs_diff_px"] < TOL_MODEL_PX:
             raise AssertionError(f"whole model {name}: {r}")
@@ -307,7 +377,7 @@ def main() -> int:
     # D = 16 != 50 / 3, so the fused head falls to the band kernel, whose
     # wrapper raises rather than run the plain version.
     bad_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md + 2, compute_dtype="float32"))
-    counts = (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches)
+    counts = (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches, soft_argmin_cuda.launches)
     refusal = None
     with torch.inference_mode():
         try:
@@ -317,18 +387,29 @@ def main() -> int:
     emit({"phase": "gate_refusal", "maxdisp": md + 2, "raised": refusal})
     if refusal is None or "band kernel refuses" not in refusal:
         raise AssertionError("a refused cost on the card did not raise")
-    if (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches) != counts:
+    if (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches, soft_argmin_cuda.launches) != counts:
         raise AssertionError("a refused cost launched a kernel")
 
     # ---- kernel table, card, result
-    src = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
+    # launches: each kernel's count over the run of the path that uses it,
+    # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
+    # head), its confidence forward (phase 4, band kernel), the fp32 default
+    # forward (phase 6, first fused head design).
     emit({"kernels": [
-        {"name": "fused_head", "route": "cuda", "source": src, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
-         "launches": launches["fused_head"], "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
+        {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
+         "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
+         "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
+         "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
+         "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None},
+        {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
+         "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
+         "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
+         "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
          "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None},
-        {"name": "band_soft_argmin", "route": "cuda", "source": src,
-         "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45",
-         "launches": launches["band_soft_argmin"], "max_abs_err": band_err, "ms": band_ms,
+        {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
+         "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
+         "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",
+         "max_abs_err": band_err, "ms": band_ms,
          "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None},
     ]})
     print(smi, flush=True)

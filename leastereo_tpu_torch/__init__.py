@@ -5,9 +5,10 @@ The JAX package stays the reference; this package mirrors its module paths
 numpy-seeded inputs (``tests/test_torch_*.py``). Layouts at the public
 boundary follow the JAX package (``LEAStereo.forward`` takes NHWC images and
 returns ``(B, H, W)``); inside, tensors are NCHW / NCDHW so convolutions go to
-cuDNN. The two Pallas TPU kernels are hand-written CUDA kernels in
-``csrc/soft_argmin_heads.cu``, built with ``nvcc`` at first use
-(``ops/_build.py``).
+cuDNN. The two Pallas TPU kernels are hand-written CUDA kernels in ``csrc/``
+(the fused head in ``fused_head_sm90.cu`` for bf16 volumes and in
+``soft_argmin_heads.cu`` for the rest, the band kernel there too), built with
+``nvcc`` at first use (``ops/_build.py``).
 """
 
 from .models import LEAStereo, LEAStereoConfig, best_sceneflow_model

@@ -1,9 +1,9 @@
 // Disparity-regression heads of LEAStereo for Hopper (sm_90a), plain C API.
 //
-// Two kernels share one stage: the 3x trilinear upsample (align_corners=False,
-// edge-clamped) of a 1-channel cost (B, D, h, w), a min-stabilised softmin over
-// the 3D disparity phases and the expectation sum_d d * p(d), written straight
-// to the interleaved (B, 3h, 3w) fp32 map.
+// Two kernels share one stage (heads_common.cuh): the 3x trilinear upsample
+// (align_corners=False, edge-clamped) of a 1-channel cost (B, D, h, w), a
+// min-stabilised softmin over the 3D disparity phases and the expectation
+// sum_d d * p(d), written straight to the interleaved (B, 3h, 3w) fp32 map.
 //
 //  * band kernel (lst_band_soft_argmin) replaces the Pallas `_band_kernel`
 //    (leastereo_tpu/ops/pallas_softargmin.py:45-98): each block loads its cost
@@ -31,11 +31,14 @@
 // all 27 taps (one staged slab per channel, halo amplification
 // (TH+4)(TW+4)/(TH*TW) = 1.7x), runs 512 threads so more staging loads are in
 // flight, and blocks the conv over 8 disparities per work item, so each slab
-// value read feeds up to three taps. Tensor cores (wgmma) and asynchronous
-// (TMA) staging for the conv are left to a later change.
+// value read feeds up to three taps. This kernel serves fp32 volumes and the
+// bf16 shapes that fused_head_sm90.cu (TMA staging, tensor-core channel
+// contraction) does not take.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "heads_common.cuh"
 
 namespace {
 
@@ -54,95 +57,8 @@ constexpr int DCHUNK = 8;           // fused head: disparities per conv work ite
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
-
-// The 9 (rh, rw) output phases of one low-res pixel at one disparity plane:
-// H blend, then W blend, with 1/3 and 2/3 weights, from its 3x3 neighbourhood.
-__device__ __forceinline__ void blend9(const float* p, float cw[9]) {
-  const float third = 1.0f / 3.0f, two_third = 2.0f / 3.0f;
-  float ch[3][3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const float x0 = p[c], x1 = p[WR + c], x2 = p[2 * WR + c];
-    ch[0][c] = third * x0 + two_third * x1;
-    ch[1][c] = x1;
-    ch[2][c] = two_third * x1 + third * x2;
-  }
-#pragma unroll
-  for (int rh = 0; rh < 3; ++rh) {
-    cw[rh * 3 + 0] = third * ch[rh][0] + two_third * ch[rh][1];
-    cw[rh * 3 + 1] = ch[rh][1];
-    cw[rh * 3 + 2] = two_third * ch[rh][1] + third * ch[rh][2];
-  }
-}
-
-// Shared stage: upsample + softmin + expectation for this thread's pixel.
-// `tile` is the block's fp32 cost tile [D][HR][WR], already edge-replicated.
-__device__ void upsample_softmin_store(const float* tile, int D, float* out, int b, int i0,
-                                       int j0, int h, int w) {
-  const float third = 1.0f / 3.0f;
-  const int ti = threadIdx.x / TW, tj = threadIdx.x % TW;
-  const float* base = tile + ti * WR + tj;
-
-  float prev[9], cur[9], nxt[9], m[9];
-  // Pass 1: the minimum over all 3D phases.
-  blend9(base, cur);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) { prev[k] = cur[k]; m[k] = cur[k]; }
-  for (int d = 0; d < D; ++d) {
-    if (d + 1 < D) {
-      blend9(base + (d + 1) * PLANE, nxt);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 9; ++k) nxt[k] = cur[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float a0 = (prev[k] + 2.0f * cur[k]) * third;
-      const float a2 = (2.0f * cur[k] + nxt[k]) * third;
-      m[k] = fminf(m[k], fminf(fminf(a0, cur[k]), a2));
-      prev[k] = cur[k];
-      cur[k] = nxt[k];
-    }
-  }
-  // Pass 2: den = sum e, num = sum (3d + r) e.
-  float num[9], den[9];
-  blend9(base, cur);
-#pragma unroll
-  for (int k = 0; k < 9; ++k) { prev[k] = cur[k]; num[k] = 0.0f; den[k] = 0.0f; }
-  for (int d = 0; d < D; ++d) {
-    if (d + 1 < D) {
-      blend9(base + (d + 1) * PLANE, nxt);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 9; ++k) nxt[k] = cur[k];
-    }
-    const float i3 = 3.0f * d;
-#pragma unroll
-    for (int k = 0; k < 9; ++k) {
-      const float a0 = (prev[k] + 2.0f * cur[k]) * third;
-      const float a2 = (2.0f * cur[k] + nxt[k]) * third;
-      const float e0 = __expf(m[k] - a0);
-      const float e1 = __expf(m[k] - cur[k]);
-      const float e2 = __expf(m[k] - a2);
-      const float s = e0 + e1 + e2;
-      den[k] += s;
-      num[k] += i3 * s + (e1 + 2.0f * e2);
-      prev[k] = cur[k];
-      cur[k] = nxt[k];
-    }
-  }
-
-  const int gi = i0 + ti, gj = j0 + tj;
-  if (gi >= h || gj >= w) return;
-  const int W3 = 3 * w;
-  float* o = out + ((size_t)b * 3 * h + 3 * gi) * W3 + 3 * gj;
-#pragma unroll
-  for (int rh = 0; rh < 3; ++rh) {
-#pragma unroll
-    for (int rw = 0; rw < 3; ++rw) o[rh * W3 + rw] = num[rh * 3 + rw] / den[rh * 3 + rw];
-  }
-}
+using heads::clampi;
+using heads::upsample_softmin_store;
 
 __global__ void __launch_bounds__(THREADS)
 band_kernel(const float* __restrict__ cost, float* __restrict__ out, int D, int h, int w) {
@@ -156,7 +72,7 @@ band_kernel(const float* __restrict__ cost, float* __restrict__ out, int D, int 
     tile[idx] = src[((size_t)d * h + gi) * w + gj];
   }
   __syncthreads();
-  upsample_softmin_store(tile, D, out, b, i0, j0, h, w);
+  upsample_softmin_store<TH, TW>(tile, D, out, b, i0, j0, h, w);
 }
 
 __host__ __device__ inline int padded_depth(int D) { return (D + DCHUNK - 1) / DCHUNK * DCHUNK; }
@@ -227,7 +143,7 @@ head_kernel(const T* __restrict__ vol, const float* __restrict__ kern, float* __
     }
   }
   __syncthreads();
-  if (threadIdx.x < THREADS) upsample_softmin_store(tile, D, out, b, i0, j0, h, w);
+  if (threadIdx.x < THREADS) upsample_softmin_store<TH, TW>(tile, D, out, b, i0, j0, h, w);
 }
 
 size_t band_smem_bytes(int D) { return (size_t)D * PLANE * sizeof(float); }

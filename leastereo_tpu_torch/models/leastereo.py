@@ -4,9 +4,10 @@ reference ``retrain/LEAStereo.py:12-52``).
 ``disparity = LEAStereo(left, right)``: the shared-weight Feature Net on both
 views, the fused cost-volume stem and the 3-D Matching Net, then the head:
 
-* eval, not ``fast_head``, not ``return_entropy``, and the fused-head gate
+* eval, not ``fast_head``, not ``return_entropy``, and a fused-head gate
   admits the shape: the ``last_3`` conv and the soft-argmin run as one CUDA
-  kernel (``ops/fused_head.py``);
+  kernel (``ops/fused_head.py``: the sm90 kernel for bf16 volumes it takes,
+  else the first design);
 * otherwise the ``last_3`` conv (cuDNN), then ``soft_argmin_fast`` when
   ``fast_head`` is set, else the band kernel (``ops/fused_softargmin.py``).
   ``pallas_head=False`` selects the plain ``soft_argmin`` instead of either
@@ -29,7 +30,7 @@ import logging
 import torch
 import torch.nn as nn
 
-from ..ops.fused_head import conv_soft_argmin_fused, fused_head_gate_reason
+from ..ops.fused_head import conv_soft_argmin_fused, fused_head_gate_reason, fused_head_route
 from ..ops.fused_softargmin import soft_argmin_fused
 from ..ops.softargmin import disparity_entropy, soft_argmin, soft_argmin_fast
 from .feature_net import FeatureNet
@@ -112,10 +113,10 @@ class LEAStereo(nn.Module):
         last_3 = self.matching.last_3
         kernel = last_3.conv.weight.to(dtype)
         if cfg.pallas_head and not self.training and not cfg.fast_head and not cfg.return_entropy:
-            reason = fused_head_gate_reason(vol.shape[1], vol.shape[2], cfg.maxdisp, vol.dtype)
-            if reason is None:
+            _, c, d, _, w = vol.shape
+            if fused_head_route(c, d, w, cfg.maxdisp, vol.dtype) is not None:
                 return conv_soft_argmin_fused(vol, kernel, cfg.maxdisp)
-            self._warn_once(f"fused head disabled: {reason}")
+            self._warn_once(f"fused head disabled: {fused_head_gate_reason(c, d, cfg.maxdisp, vol.dtype)}")
         cost = last_3(vol)[:, 0]  # (B, D, h, w)
         if cfg.fast_head:
             disp = soft_argmin_fast(cost, cfg.maxdisp)

@@ -4,7 +4,9 @@
 C interface, at first use, into ``leastereo_tpu_torch/build/`` (listed in
 ``.gitignore``), and loaded with ``ctypes``. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
-The library is rebuilt when a source is newer than it.
+The library is rebuilt when a source or header (``*.cu``, ``*.cuh``) is
+newer than it. It links no ``-lcuda``: the one libcuda function it needs
+(the TMA tensor-map encoder) is looked up through the CUDA runtime.
 """
 
 from __future__ import annotations
@@ -16,7 +18,15 @@ import shutil
 import subprocess
 import tempfile
 
-__all__ = ["load_kernels", "BUILD_DIR", "check", "band_smem_bytes", "head_smem_bytes", "SMEM_LIMIT"]
+__all__ = [
+    "load_kernels",
+    "BUILD_DIR",
+    "check",
+    "band_smem_bytes",
+    "head_smem_bytes",
+    "head_sm90_smem_bytes",
+    "SMEM_LIMIT",
+]
 
 # Tile geometry of csrc/soft_argmin_heads.cu: TH x TW low-res pixels per
 # block, DCHUNK disparities per conv work item of the fused head. The
@@ -24,6 +34,14 @@ __all__ = ["load_kernels", "BUILD_DIR", "check", "band_smem_bytes", "head_smem_b
 # loads.
 TILE_H, TILE_W, DCHUNK = 8, 32, 8
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper (227 KB)
+
+# Geometry of csrc/fused_head_sm90.cu: TH x TW = 8 x 16 low-res pixels per
+# block; a TMA box of one depth plane is [C][SR+1][24] bf16 (the +-2 halo
+# rounded up to whole 16-byte rows, one spare row), two boxes in the ring; the
+# tap products P are fp32 [27][(SR)(SW) + 4].
+SM90_TILE_H, SM90_TILE_W, SM90_STAGES = 8, 16, 2
+_SM90_BOX = 24 * (SM90_TILE_H + 5)
+_SM90_P = 27 * ((SM90_TILE_H + 4) * (SM90_TILE_W + 4) + 4)
 
 
 def band_smem_bytes(d: int) -> int:
@@ -36,6 +54,13 @@ def head_smem_bytes(channels: int, d: int) -> int:
     [ceil8(D)+2][TH+4][TW+4] and the conv weights, all fp32."""
     dp = -(-d // DCHUNK) * DCHUNK
     return band_smem_bytes(d) + 4 * ((dp + 2) * (TILE_H + 4) * (TILE_W + 4) + 27 * channels)
+
+
+def head_sm90_smem_bytes(channels: int, d: int) -> int:
+    """Shared memory of the sm90 fused head: the TMA ring (bf16), the tap
+    products and the fp32 cost tile [D][TH+2][TW+2], plus one mbarrier a stage."""
+    cost = 4 * d * (SM90_TILE_H + 2) * (SM90_TILE_W + 2)
+    return SM90_STAGES * (2 * channels * _SM90_BOX + 8) + 4 * _SM90_P + cost
 
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -84,7 +109,7 @@ def load_kernels() -> ctypes.CDLL:
         return _lib
     sources = sorted(_CSRC.glob("*.cu"))
     lib_path = BUILD_DIR / _LIB_NAME
-    newest = max(s.stat().st_mtime for s in sources)
+    newest = max(s.stat().st_mtime for s in [*sources, *_CSRC.glob("*.cuh")])
     if not lib_path.exists() or lib_path.stat().st_mtime < newest:
         _build(lib_path, sources)
     lib = ctypes.CDLL(str(lib_path))
@@ -99,20 +124,31 @@ def load_kernels() -> ctypes.CDLL:
     lib.lst_band_soft_argmin.restype = i
     lib.lst_head_soft_argmin.argtypes = [p, i, p, p, i, i, i, i, i, p]
     lib.lst_head_soft_argmin.restype = i
+    lib.lst_head_sm90_smem_bytes.argtypes = [i, i]
+    lib.lst_head_sm90_smem_bytes.restype = ctypes.c_longlong
+    lib.lst_head_sm90_soft_argmin.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.lst_head_sm90_soft_argmin.restype = i
     # The gates decide with the formulas above: hold them to the built layout
     # (D not a multiple of DCHUNK included) so a gate never admits a shape
     # the kernel cannot launch.
     for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 170)):
-        host = (band_smem_bytes(d), head_smem_bytes(c, d))
-        built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d))
+        host = (band_smem_bytes(d), head_smem_bytes(c, d), head_sm90_smem_bytes(c, d))
+        built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d), lib.lst_head_sm90_smem_bytes(c, d))
         if host != built:
-            raise RuntimeError(f"shared memory (band, head) at C={c}, D={d}: library {built} != host {host}")
+            raise RuntimeError(f"shared memory (band, head, sm90 head) at C={c}, D={d}: library {built} != host {host}")
     _lib = lib
     return lib
 
 
+# lst_head_sm90_soft_argmin returns this + the CUresult of a refused tensor map.
+TENSOR_MAP_ERROR = 100000
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero ``cudaError_t`` returned by a launch."""
+    """Raise on a non-zero ``cudaError_t`` (or tensor-map ``CUresult``)
+    returned by a launch."""
+    if err >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed, CUresult {err - TENSOR_MAP_ERROR}")
     if err != 0:
         msg = load_kernels().lst_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

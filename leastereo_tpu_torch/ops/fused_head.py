@@ -1,21 +1,25 @@
 """Fused matching head: the ``last_3`` 3x3x3 conv (C -> 1) + 3x upsample +
 softmin + soft-argmin in one kernel.
 
-Port of ``leastereo_tpu/ops/pallas_head.py``. The CUDA kernel
-(``csrc/soft_argmin_heads.cu``, ``lst_head_soft_argmin``) replaces the Pallas
-``_head_kernel`` (``pallas_head.py:96-236``). Each block computes its own
-``(D, TH+2, TW+2)`` cost tile from the pre-head volume, accumulating the
-``27 * C`` taps in fp32 even for a bf16 volume (the property the TPU kernel's
-parity record credits: rounding the cost to bf16 moves the disparity by up
-to ~1.3 px), edge-replicates the tile after the conv, and runs the band
-kernel's upsample + softmin stage on it. The ``(B, D, h, w)`` cost never
-reaches device memory.
+Port of ``leastereo_tpu/ops/pallas_head.py``. Two CUDA kernels replace the
+Pallas ``_head_kernel`` (``pallas_head.py:96-236``); both compute each
+block's ``(D, TH+2, TW+2)`` cost tile from the pre-head volume, accumulating
+the ``27 * C`` taps in fp32 even for a bf16 volume (the property the TPU
+kernel's parity record credits: rounding the cost to bf16 moves the
+disparity by up to ~1.3 px), edge-replicate the tile after the conv, and run
+the band kernel's upsample + softmin stage on it. The ``(B, D, h, w)`` cost
+never reaches device memory.
 
-On the H100 this first version runs the conv on CUDA cores in fp32 (5.9
-GFLOP per KITTI frame) with one ~200 KB block per SM, so the latency of
-staging the volume channel by channel and the FMA throughput bound it, not
-its 218 MB bf16 read; the TPU's band-matrix formulation and halo DMAs are
-layout for the MXU and are not carried over.
+- ``csrc/fused_head_sm90.cu`` (:func:`conv_soft_argmin_sm90`), the main
+  path's: bf16 volumes staged plane by plane with TMA into an mbarrier ring,
+  the channel contraction on tensor cores (``mma.sync``, each fp32 weight
+  split into three bf16 parts whose sum is exact; one part when the weights
+  are bf16), the 27-tap sum in fp32.
+- ``csrc/soft_argmin_heads.cu`` (:func:`conv_soft_argmin_simt`), the first
+  design: the conv in fp32 on CUDA cores, one input channel staged at a time.
+  It serves fp32 volumes and the bf16 shapes the sm90 gate refuses.
+
+:func:`conv_soft_argmin_cuda` routes between them before launch.
 """
 
 from __future__ import annotations
@@ -28,7 +32,11 @@ from .softargmin import soft_argmin
 
 __all__ = [
     "fused_head_gate_reason",
+    "fused_head_sm90_gate_reason",
+    "fused_head_route",
     "conv_soft_argmin_reference",
+    "conv_soft_argmin_simt",
+    "conv_soft_argmin_sm90",
     "conv_soft_argmin_cuda",
     "conv_soft_argmin_fused",
 ]
@@ -37,9 +45,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_head_gate_reason(channels: int, d: int, maxdisp: int, dtype: torch.dtype) -> str | None:
-    """``None`` when the fused head kernel takes a ``(B, channels, d, h, w)``
-    volume of ``dtype``; otherwise a reason to run the ``last_3`` conv and the
-    band kernel instead. Any ``h``, ``w`` and batch are taken."""
+    """``None`` when the first fused head kernel (``head_kernel``) takes a
+    ``(B, channels, d, h, w)`` volume of ``dtype``; otherwise the reason it
+    refuses. Any ``h``, ``w`` and batch are taken."""
     if maxdisp != 3 * d:
         return f"maxdisp {maxdisp} != 3 * D ({d})"
     if dtype not in _DTYPES:
@@ -47,6 +55,35 @@ def fused_head_gate_reason(channels: int, d: int, maxdisp: int, dtype: torch.dty
     smem = _build.head_smem_bytes(channels, d)
     if smem > _build.SMEM_LIMIT:
         return f"D={d}, C={channels} needs {smem} B of shared memory > {_build.SMEM_LIMIT}"
+    return None
+
+
+def fused_head_sm90_gate_reason(channels: int, d: int, w: int, maxdisp: int, dtype: torch.dtype) -> str | None:
+    """``None`` when the sm90 fused head takes a contiguous ``(B, channels, d,
+    h, w)`` volume of ``dtype``; otherwise the reason it refuses. Any ``h``
+    and batch are taken."""
+    if maxdisp != 3 * d:
+        return f"maxdisp {maxdisp} != 3 * D ({d})"
+    if dtype != torch.bfloat16:
+        return f"volume dtype {dtype} (the sm90 kernel takes bfloat16)"
+    if channels % 16 or not 16 <= channels <= 64:
+        return f"C={channels} (the sm90 kernel takes 16, 32, 48 or 64 channels)"
+    if w % 8:
+        return f"w={w} is not a multiple of 8 (TMA needs 16-byte row strides)"
+    smem = _build.head_sm90_smem_bytes(channels, d)
+    if smem > _build.SMEM_LIMIT:
+        return f"D={d}, C={channels} needs {smem} B of shared memory > {_build.SMEM_LIMIT}"
+    return None
+
+
+def fused_head_route(channels: int, d: int, w: int, maxdisp: int, dtype: torch.dtype) -> str | None:
+    """Which fused head kernel takes a contiguous ``(B, channels, d, h, w)``
+    volume of ``dtype``: ``"sm90"``, ``"simt"`` (the first design), or
+    ``None`` when both refuse it."""
+    if fused_head_sm90_gate_reason(channels, d, w, maxdisp, dtype) is None:
+        return "sm90"
+    if fused_head_gate_reason(channels, d, maxdisp, dtype) is None:
+        return "simt"
     return None
 
 
@@ -59,41 +96,92 @@ def conv_soft_argmin_reference(vol: torch.Tensor, kernel: torch.Tensor, maxdisp:
     return soft_argmin(cost, maxdisp)
 
 
-def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
-    """Fused head on a ``(B, C, D, h, w)`` volume with a ``(1, C, 3, 3, 3)``
-    kernel -> ``(B, 3h, 3w)`` fp32.
-
-    A CUDA volume (float32 or bfloat16, contiguous) runs the kernel; the
-    kernel weights are taken in fp32. A CPU volume takes
-    :func:`conv_soft_argmin_reference`. ``conv_soft_argmin_cuda.launches``
-    counts the kernel launches.
-    """
+def _check_args(vol: torch.Tensor, kernel: torch.Tensor) -> None:
     if vol.ndim != 5 or tuple(kernel.shape) != (1, vol.shape[1], 3, 3, 3):
         raise ValueError(f"expected (B, C, D, h, w) and (1, C, 3, 3, 3), got {tuple(vol.shape)}, {tuple(kernel.shape)}")
+    if vol.device.type != "cpu" and (vol.device.type != "cuda" or kernel.device != vol.device):
+        raise ValueError(f"volume on {vol.device} and kernel on {kernel.device}: both must be on one CUDA device")
+
+
+def _launch(vol: torch.Tensor, kernel: torch.Tensor, what: str, call) -> torch.Tensor:
+    """Allocate the ``(B, 3h, 3w)`` output, run ``call(lib, k32, out, stream)``
+    (a C launch returning an error code) on the volume's device, and raise on
+    a non-zero code."""
+    b, _, _, h, w = vol.shape
+    lib = _build.load_kernels()
+    k32 = kernel.to(torch.float32).contiguous()
+    out = torch.empty((b, 3 * h, 3 * w), dtype=torch.float32, device=vol.device)
+    stream = torch.cuda.current_stream(vol.device).cuda_stream
+    with torch.cuda.device(vol.device):
+        err = call(lib, k32, out, stream)
+    _build.check(err, what)
+    return out
+
+
+def conv_soft_argmin_simt(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """The first fused head kernel (``lst_head_soft_argmin``) on a ``(B, C,
+    D, h, w)`` float32 or bfloat16 contiguous CUDA volume with a ``(1, C, 3,
+    3, 3)`` kernel (taken in fp32) -> ``(B, 3h, 3w)`` fp32. A CPU volume takes
+    :func:`conv_soft_argmin_reference`. ``.launches`` counts the launches."""
+    _check_args(vol, kernel)
     if vol.device.type == "cpu":
         return conv_soft_argmin_reference(vol, kernel, maxdisp)
-    if vol.device.type != "cuda" or kernel.device != vol.device:
-        raise ValueError(f"volume on {vol.device} and kernel on {kernel.device}: both must be on one CUDA device")
     b, c, d, h, w = vol.shape
     reason = fused_head_gate_reason(c, d, maxdisp, vol.dtype)
     if reason is not None:
         raise ValueError(f"fused head refuses this volume: {reason}")
     if not vol.is_contiguous():
         raise ValueError("fused head takes a contiguous volume")
-    lib = _build.load_kernels()
-    k32 = kernel.to(torch.float32).contiguous()
-    out = torch.empty((b, 3 * h, 3 * w), dtype=torch.float32, device=vol.device)
-    stream = torch.cuda.current_stream(vol.device).cuda_stream
-    with torch.cuda.device(vol.device):
-        err = lib.lst_head_soft_argmin(
-            vol.data_ptr(), _DTYPES[vol.dtype], k32.data_ptr(), out.data_ptr(), b, c, d, h, w, stream
-        )
-    _build.check(err, "fused head kernel")
-    conv_soft_argmin_cuda.launches += 1
+    out = _launch(vol, kernel, "fused head kernel", lambda lib, k32, out, stream: lib.lst_head_soft_argmin(
+        vol.data_ptr(), _DTYPES[vol.dtype], k32.data_ptr(), out.data_ptr(), b, c, d, h, w, stream))
+    conv_soft_argmin_simt.launches += 1
     return out
 
 
-conv_soft_argmin_cuda.launches = 0
+conv_soft_argmin_simt.launches = 0
+
+
+def conv_soft_argmin_sm90(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """The sm90 fused head (``lst_head_sm90_soft_argmin``) on a ``(B, C, D, h,
+    w)`` bfloat16 contiguous, 16-byte aligned CUDA volume that
+    :func:`fused_head_sm90_gate_reason` admits, with a ``(1, C, 3, 3, 3)``
+    kernel (taken in fp32) -> ``(B, 3h, 3w)`` fp32. A CPU volume takes
+    :func:`conv_soft_argmin_reference`. ``.launches`` counts the launches."""
+    _check_args(vol, kernel)
+    if vol.device.type == "cpu":
+        return conv_soft_argmin_reference(vol, kernel, maxdisp)
+    b, c, d, h, w = vol.shape
+    reason = fused_head_sm90_gate_reason(c, d, w, maxdisp, vol.dtype)
+    if reason is not None:
+        raise ValueError(f"sm90 fused head refuses this volume: {reason}")
+    if not vol.is_contiguous() or vol.data_ptr() % 16:
+        raise ValueError("sm90 fused head takes a contiguous, 16-byte aligned volume")
+    out = _launch(vol, kernel, "sm90 fused head kernel", lambda lib, k32, out, stream: lib.lst_head_sm90_soft_argmin(
+        vol.data_ptr(), k32.data_ptr(), out.data_ptr(), b, c, d, h, w, stream))
+    conv_soft_argmin_sm90.launches += 1
+    return out
+
+
+conv_soft_argmin_sm90.launches = 0
+
+
+def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """Fused head on a ``(B, C, D, h, w)`` volume with a ``(1, C, 3, 3, 3)``
+    kernel -> ``(B, 3h, 3w)`` fp32.
+
+    A CUDA volume the sm90 gate admits (bf16, contiguous, 16-byte aligned)
+    runs :func:`conv_soft_argmin_sm90`; any other CUDA volume runs
+    :func:`conv_soft_argmin_simt`, which raises on what it refuses. A CPU
+    volume takes :func:`conv_soft_argmin_reference`.
+    """
+    _check_args(vol, kernel)
+    if vol.device.type == "cpu":
+        return conv_soft_argmin_reference(vol, kernel, maxdisp)
+    _, c, d, _, w = vol.shape
+    aligned = vol.is_contiguous() and vol.data_ptr() % 16 == 0
+    if aligned and fused_head_route(c, d, w, maxdisp, vol.dtype) == "sm90":
+        return conv_soft_argmin_sm90(vol, kernel, maxdisp)
+    return conv_soft_argmin_simt(vol, kernel, maxdisp)
 
 
 class _ConvSoftArgminFn(torch.autograd.Function):

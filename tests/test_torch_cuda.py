@@ -1,9 +1,8 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-Each kernel (``leastereo_tpu_torch/csrc/soft_argmin_heads.cu``) is built from
-source on first use and held against its plain PyTorch version evaluated in
-float64 on the same inputs, at small ragged shapes and at the KITTI head
-shape. Every test skips without a CUDA card. This file imports neither JAX
+Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
+first use and held against its plain PyTorch version evaluated in float64 on
+the same inputs, at small ragged shapes and at the KITTI head shape. Every test skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -14,7 +13,13 @@ import pytest
 import torch
 
 from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
-from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_cuda, conv_soft_argmin_reference
+from leastereo_tpu_torch.ops.fused_head import (
+    conv_soft_argmin_cuda,
+    conv_soft_argmin_reference,
+    conv_soft_argmin_simt,
+    conv_soft_argmin_sm90,
+    fused_head_route,
+)
 from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
 from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
@@ -52,20 +57,69 @@ def test_band_kernel(dev, shape):
     assert (got.double() - ref).abs().max().item() < TOL_PX
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(1, 8, 16, 24, 32), (2, 16, 20, 40, 16), (1, 64, 32, 64, 32)])
-def test_fused_head(dev, shape, dtype):
+def _head_case(dev, shape, dtype, kern_dtype=torch.float32):
     b, d, h, w, c = shape
     rng = np.random.RandomState(0)
     vol = torch.from_numpy((rng.randn(b, c, d, h, w) * 0.5).astype(np.float32)).to(dev, dtype)
-    kern = torch.from_numpy((rng.randn(1, c, 3, 3, 3) * 0.2).astype(np.float32)).to(dev)
-    n = conv_soft_argmin_cuda.launches
+    kern = torch.from_numpy((rng.randn(1, c, 3, 3, 3) * 0.2).astype(np.float32)).to(dev, kern_dtype)
+    return vol, kern
+
+
+# (b, d, h, w, c). The first three run with fp32 and bf16 volumes; the rest
+# are bf16 shapes the sm90 gate admits, ragged against its 8 x 16 tile
+# (h, w not multiples of it), C in {16, 32}, D in {8, 16, 64}.
+HEAD_SHAPES = [(1, 8, 16, 24, 32), (2, 16, 20, 40, 16), (1, 64, 32, 64, 32)]
+SM90_SHAPES = [(1, 8, 5, 8, 16), (1, 16, 13, 56, 16), (2, 8, 19, 72, 32), (1, 64, 37, 104, 32), (1, 64, 128, 416, 32)]
+
+
+@pytest.mark.parametrize(
+    "shape,dtype",
+    [(s, torch.float32) for s in HEAD_SHAPES] + [(s, torch.bfloat16) for s in HEAD_SHAPES + SM90_SHAPES],
+)
+def test_fused_head(dev, shape, dtype):
+    """The routing wrapper: bf16 volumes the sm90 gate admits launch the sm90
+    kernel, fp32 volumes the first design; exactly one counter moves."""
+    b, d, h, w, c = shape
+    vol, kern = _head_case(dev, shape, dtype)
+    route = fused_head_route(c, d, w, 3 * d, dtype)
+    assert route == ("sm90" if dtype == torch.bfloat16 else "simt")
+    n = conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches
     got = conv_soft_argmin_cuda(vol, kern, 3 * d)
     torch.cuda.synchronize()
-    assert conv_soft_argmin_cuda.launches == n + 1
+    moved = (conv_soft_argmin_simt.launches - n[0], conv_soft_argmin_sm90.launches - n[1])
+    assert moved == ((0, 1) if route == "sm90" else (1, 0))
     # bf16 volumes: the plain version sees the same bf16 values, upcast.
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
     assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+@pytest.mark.parametrize("shape", [(1, 8, 16, 20, 32), (1, 8, 16, 24, 24)])
+def test_fused_head_refused_by_sm90_runs_first_design(dev, shape):
+    """bf16 with w % 8 != 0 or C % 16 != 0: the first design's kernel."""
+    b, d, h, w, c = shape
+    vol, kern = _head_case(dev, shape, torch.bfloat16)
+    assert fused_head_route(c, d, w, 3 * d, torch.bfloat16) == "simt"
+    n = conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches
+    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
+    torch.cuda.synchronize()
+    assert (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches) == (n[0] + 1, n[1])
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
+    assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+@pytest.mark.parametrize("kern_dtype", [torch.float32, torch.bfloat16])
+def test_fused_head_both_kernels_agree(dev, kern_dtype):
+    """On one bf16 volume, the sm90 kernel and the first design; bf16
+    weights take the sm90 kernel's one-part contraction."""
+    shape = (1, 16, 24, 48, 32)
+    vol, kern = _head_case(dev, shape, torch.bfloat16, kern_dtype)
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * shape[1])
+    for fn in (conv_soft_argmin_sm90, conv_soft_argmin_simt):
+        n = fn.launches
+        got = fn(vol, kern, 3 * shape[1])
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        assert (got.double() - ref).abs().max().item() < TOL_PX
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):
@@ -86,7 +140,8 @@ def test_model_raises_on_refused_cost(dev):
     kernel, which refuses the CUDA cost; the model raises, launching nothing."""
     model = best_sceneflow_model(LEAStereoConfig(maxdisp=50, compute_dtype="float32"), device=dev)
     x = torch.from_numpy(np.random.RandomState(0).randn(1, 48, 96, 3).astype(np.float32)).to(dev)
-    n = soft_argmin_cuda.launches, conv_soft_argmin_cuda.launches
+    counters = (soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90)
+    n = [f.launches for f in counters]
     with torch.no_grad(), pytest.raises(ValueError, match="band kernel refuses"):
         model(x, x)
-    assert (soft_argmin_cuda.launches, conv_soft_argmin_cuda.launches) == n
+    assert [f.launches for f in counters] == n

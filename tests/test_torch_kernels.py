@@ -3,14 +3,18 @@ fused_softargmin.py) against the JAX Pallas kernels they replace.
 
 On the CPU the wrappers run their plain versions; those are held against
 ``conv_soft_argmin_pallas`` / ``soft_argmin_pallas`` in interpret mode, on the
-same numpy-seeded inputs. The CUDA kernels themselves are held against the
-plain versions on the card by ``tests/test_torch_cuda.py``.
+same numpy-seeded inputs. The sm90 fused head's decomposition (tensor-core
+channel contraction per voxel, then the 27-tap sum at clamped tile sites) is
+replayed here in plain torch, tile by tile, and held against the same JAX
+kernel. The CUDA kernels themselves are held against the plain versions on
+the card by ``tests/test_torch_cuda.py``.
 """
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from leastereo_tpu.ops.packed3d import pack
 from leastereo_tpu.ops.pallas_head import conv_soft_argmin_pallas
@@ -19,7 +23,11 @@ from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_cuda,
     conv_soft_argmin_fused,
     conv_soft_argmin_reference,
+    conv_soft_argmin_simt,
+    conv_soft_argmin_sm90,
     fused_head_gate_reason,
+    fused_head_route,
+    fused_head_sm90_gate_reason,
 )
 from leastereo_tpu_torch.ops.fused_softargmin import (
     band_gate_reason,
@@ -105,10 +113,15 @@ def test_cpu_wrappers_take_plain_versions():
     x, k = _head_inputs(b, d, h, w, c, seed=3)
     vol, kern = _to_port(x, k)
     cost = torch.from_numpy(_peaky_cost(b, d, h, w, seed=3))
-    before = (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches)
-    assert torch.equal(conv_soft_argmin_cuda(vol, kern, 3 * d), conv_soft_argmin_reference(vol, kern, 3 * d))
+    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, soft_argmin_cuda)
+    before = [f.launches for f in counters]
+    ref = conv_soft_argmin_reference(vol, kern, 3 * d)
+    for fn in (conv_soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90):
+        assert torch.equal(fn(vol, kern, 3 * d), ref)
+        # A bf16 volume the sm90 gate admits takes the plain version too.
+        assert torch.equal(fn(vol.bfloat16(), kern, 3 * d), conv_soft_argmin_reference(vol.bfloat16(), kern, 3 * d))
     assert torch.equal(soft_argmin_cuda(cost, 3 * d), soft_argmin(cost, 3 * d))
-    assert (conv_soft_argmin_cuda.launches, soft_argmin_cuda.launches) == before
+    assert [f.launches for f in counters] == before
 
 
 def test_autograd_functions_match_plain_gradients():
@@ -145,6 +158,24 @@ def test_gates():
     assert band_gate_reason(170, 510) is None
     assert "shared memory" in band_gate_reason(171, 513)
     assert "maxdisp" in band_gate_reason(64, 191)
+    # The sm90 kernel: bf16, C a multiple of 16 up to 64, w a multiple of 8.
+    assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.bfloat16) is None
+    assert "dtype" in fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float32)
+    assert "C=24" in fused_head_sm90_gate_reason(24, 64, 416, 192, torch.bfloat16)
+    assert "C=80" in fused_head_sm90_gate_reason(80, 8, 416, 24, torch.bfloat16)
+    assert "w=412" in fused_head_sm90_gate_reason(32, 64, 412, 192, torch.bfloat16)
+    assert "maxdisp" in fused_head_sm90_gate_reason(32, 64, 416, 190, torch.bfloat16)
+    # Its smaller tile takes Middlebury's D = 136 at bf16, which the first design refuses.
+    assert fused_head_sm90_gate_reason(32, 136, 504, 408, torch.bfloat16) is None
+    assert "shared memory" in fused_head_sm90_gate_reason(32, 300, 504, 900, torch.bfloat16)
+    # Routing: KITTI bf16 -> sm90; fp32 and the shapes sm90 refuses -> the first design.
+    assert fused_head_route(32, 64, 416, 192, torch.bfloat16) == "sm90"
+    assert fused_head_route(32, 64, 416, 192, torch.float32) == "simt"
+    assert fused_head_route(24, 64, 416, 192, torch.bfloat16) == "simt"
+    assert fused_head_route(32, 64, 412, 192, torch.bfloat16) == "simt"
+    assert fused_head_route(32, 136, 504, 408, torch.bfloat16) == "sm90"
+    assert fused_head_route(32, 136, 504, 408, torch.float32) is None
+    assert fused_head_route(32, 64, 416, 190, torch.bfloat16) is None
 
 
 def test_wrappers_reject_bad_input():
@@ -154,3 +185,83 @@ def test_wrappers_reject_bad_input():
         conv_soft_argmin_cuda(torch.zeros(1, 4, 8, 4, 4), torch.zeros(1, 3, 3, 3, 3), 24)
     with pytest.raises(ValueError, match="maxdisp"):
         soft_argmin_cuda(torch.zeros(1, 8, 4, 4), 25)
+
+
+# Geometry of csrc/fused_head_sm90.cu: 8 x 16 tiles starting at j = 16 k - 6,
+# each reading voxels (i0 - 2.., j0 - 2..) of (TH + 4) x (TW + 4).
+SM90_TH, SM90_TW, SM90_SHIFT = 8, 16, 6
+
+
+def _bf16_parts(w: torch.Tensor, n: int) -> list[torch.Tensor]:
+    """Split fp32 weights into ``n`` bf16 parts (each returned in fp32), as
+    the sm90 kernel does: part p = bf16(w - parts before it)."""
+    parts, rest = [], w.clone()
+    for _ in range(n):
+        part = rest.to(torch.bfloat16).to(torch.float32)
+        parts.append(part)
+        rest = rest - part
+    return parts
+
+
+def _sm90_cost_tiles(vol: torch.Tensor, kern: torch.Tensor) -> dict:
+    """The sm90 kernel's cost tiles [D][TH+2][TW+2], in plain fp32 torch: per
+    block, P[voxel, tap] = V . (W0 + W1 + W2) over channels (the tensor-core
+    contraction, one product per bf16 weight part), then at each tile site the
+    9 (kh, kw) taps of each kd, summed at its clamped in-frame site, added into
+    cost plane d_in - kd + 1."""
+    th, tw, sr, sw = SM90_TH, SM90_TW, SM90_TH + 4, SM90_TW + 4
+    b, c, d, h, w = vol.shape
+    parts = _bf16_parts(kern.reshape(c, 27), 3)
+    pad = (8, 32, 2, sr)  # zero fill: what TMA reads outside the frame
+    vpad = F.pad(vol, pad)
+    tiles = {}
+    for bi in range(b):
+        for i0 in range(0, h, th):
+            for j0 in range(-SM90_SHIFT, w, tw):
+                box = vpad[bi, :, :, i0 - 2 + pad[2] : i0 - 2 + pad[2] + sr, j0 - 2 + pad[0] : j0 - 2 + pad[0] + sw]
+                p = sum(torch.einsum("cdyx,ct->dtyx", box, part) for part in parts).reshape(d, 27, sr * sw)
+                gi = (i0 - 1 + torch.arange(th + 2)).clamp(0, h - 1) - (i0 - 2)
+                gj = (j0 - 1 + torch.arange(tw + 2)).clamp(0, w - 1) - (j0 - 2)
+                pc = ((gi[:, None] - 1) * sw + (gj[None, :] - 1)).reshape(-1)
+                q = torch.zeros(d + 2, 3, pc.numel())  # input planes -1..D, taps summed per kd
+                for kd in range(3):
+                    for kh in range(3):
+                        for kw in range(3):
+                            q[1 : d + 1, kd] += p[:, kd * 9 + kh * 3 + kw, pc + kh * sw + kw]
+                # cost plane e takes kd = 0 of input plane e - 1, kd = 1 of e, kd = 2 of e + 1.
+                cost = q[0:d, 0] + q[1 : d + 1, 1] + q[2 : d + 2, 2]
+                tiles[bi, i0, j0] = cost.reshape(d, th + 2, tw + 2)
+    return tiles
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_sm90_arithmetic_matches_pallas(shape):
+    b, d, h, w, c, g = shape
+    x, k = _head_inputs(b, d, h, w, c, seed=5)
+    x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # the kernel reads a bf16 volume
+    ref = np.asarray(conv_soft_argmin_pallas(pack(jnp.asarray(x), g).data, jnp.asarray(k), g, c, 3 * d, True))
+    vol, kern = _to_port(x, k)
+    tiles = _sm90_cost_tiles(vol, kern)
+    cost = torch.empty(b, d, h, w)
+    for (bi, i0, j0), t in tiles.items():
+        lo = max(j0, 0)
+        cost[bi, :, i0 : i0 + SM90_TH, lo : j0 + SM90_TW] = t[:, 1 : 1 + min(SM90_TH, h - i0), 1 + lo - j0 : 1 + min(SM90_TW, w - j0)]
+    # Each tile's halo and out-of-frame sites hold the cost of the clamped site.
+    for (bi, i0, j0), t in tiles.items():
+        ri = (i0 - 1 + torch.arange(SM90_TH + 2)).clamp(0, h - 1)
+        rj = (j0 - 1 + torch.arange(SM90_TW + 2)).clamp(0, w - 1)
+        torch.testing.assert_close(t, cost[bi][:, ri][:, :, rj], atol=1e-5, rtol=1e-5)
+    got = soft_argmin(cost, 3 * d).numpy()
+    # fp32 on both sides, the conv summed in another order: 2e-3 px.
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+def test_weight_split_keeps_fp32_weights():
+    rng = np.random.RandomState(6)
+    w = torch.from_numpy((rng.randn(4096) * np.exp(rng.uniform(-8, 4, 4096))).astype(np.float32))
+    hi, lo = _bf16_parts(w, 2)
+    assert ((hi + lo - w).abs() <= 2.0**-16 * w.abs()).all()
+    # The kernel's three parts reproduce every weight exactly.
+    assert torch.equal(sum(_bf16_parts(w, 3)), w)
+    # bf16 weights (the main path's) have zero second and third parts.
+    assert all(torch.equal(p, torch.zeros_like(p)) for p in _bf16_parts(w.bfloat16().float(), 3)[1:])
