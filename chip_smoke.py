@@ -9,12 +9,16 @@ caught, so any failure exits non-zero):
 1. card: name and power limit (nvidia-smi); TF32 off for the fp32 phases.
 2. build: the CUDA kernels built from leastereo_tpu_torch/csrc with nvcc.
 3. kernels: each kernel on the card at the KITTI main-path shapes against
-   its plain PyTorch version evaluated in float64, on peaky (trained-like)
-   and diffuse inputs: the sm90 fused head (bf16 volume), the first fused
-   head design (fp32 and bf16 volumes) and the band kernel; then their times
-   on one bf16 input beside the unfused yardstick (cuDNN ``last_3`` conv +
-   band kernel), and the first design's time at shapes that show what
-   limits it.
+   its plain PyTorch version evaluated in float64, on peaky (trained-like),
+   wide (the peaky cost scaled 10x, a span of hundreds of units) and
+   diffuse inputs: the sm90 fused head (bf16 volume), the first fused head
+   design (fp32 and bf16 volumes) and the band kernel; the band kernel and
+   the sm90 head on a 300x cost beside the fp32 plain version, both against
+   float64 (a measurement: there fp32 rounding of the cost alone moves the
+   result by ~3e-3 px); then their times on one bf16 input beside the
+   unfused yardstick (cuDNN ``last_3`` conv + band kernel), the band
+   kernel's grid and occupancy, and the first design's time at shapes that
+   show what limits it.
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
    eval, random seeded weights: the default forward (sm90 fused head, once
    per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
@@ -44,7 +48,8 @@ import torch
 # bf16 tensor cores 989 TFLOP/s, fp32 CUDA cores 67 TFLOP/s. Special-function
 # units (exp2): 16 results per clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput, compute capability 9.0) x 132 SMs x
-# 1.98 GHz boost clock.
+# 1.98 GHz boost clock. The heads need one exponential per low-res plane
+# and output phase: 9 D per low-res pixel.
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_SFU_S = 16 * 132 * 1.98e9
@@ -97,15 +102,22 @@ def peaky_cost(gen, b, d, h, w, dev):
     return 0.35 * (planes - best).abs().float() + 0.8 * torch.randn(b, d, h, w, generator=gen, device=dev)
 
 
+WIDE = 10.0  # scale of the "wide" inputs' cost (a span of ~250 units at D = 64)
+SPAN_300 = 300.0  # scale of the cost in phase wide_span_300x
+
+
 def head_inputs(gen, kind, b, c, d, h, w, dev):
     """Pre-head volume (B, C, D, h, w) and last_3 kernel (1, C, 3, 3, 3).
     "peaky": channel 0 carries a trained-like cost that the kernel's centre
-    tap passes through; "diffuse": random volume and kernel."""
+    tap passes through; "wide": the same with the kernel scaled WIDE times;
+    "diffuse": random volume and kernel."""
     vol = 0.5 * torch.randn(b, c, d, h, w, generator=gen, device=dev)
-    if kind == "peaky":
+    if kind in ("peaky", "wide"):
         vol[:, 0] = peaky_cost(gen, b, d, h, w, dev)
         kern = 0.02 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
         kern[0, 0, 1, 1, 1] += 1.0
+        if kind == "wide":
+            kern *= WIDE
     else:
         kern = 0.2 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
     return vol, kern
@@ -156,7 +168,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_kernels()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln]
+    ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s, "built": ["fused_head_sm90", "fused_head", "band_soft_argmin"],
           "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
 
@@ -164,7 +176,7 @@ def main() -> int:
     b, c, d, h, w, maxdisp = 1, 32, 64, 128, 416, 192
     gen = torch.Generator(device=dev).manual_seed(0)
     head_err, sm90_err, band_err = 0.0, 0.0, 0.0
-    for kind in ("peaky", "diffuse"):
+    for kind in ("peaky", "wide", "diffuse"):
         vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
         for name, fn, dt in (("fused_head_sm90", conv_soft_argmin_sm90, torch.bfloat16),
                              ("fused_head", conv_soft_argmin_simt, torch.float32),
@@ -182,7 +194,10 @@ def main() -> int:
             else:
                 head_err = max(head_err, err)
             del ref
-        cost = peaky_cost(gen, b, d, h, w, dev) if kind == "peaky" else torch.randn(b, d, h, w, generator=gen, device=dev)
+        if kind == "diffuse":
+            cost = torch.randn(b, d, h, w, generator=gen, device=dev)
+        else:
+            cost = peaky_cost(gen, b, d, h, w, dev) * (WIDE if kind == "wide" else 1.0)
         got = soft_argmin_cuda(cost, maxdisp)
         err = (got.double() - soft_argmin(cost.double(), maxdisp)).abs().max().item()
         emit({"phase": "kernel_check", "kernel": "band_soft_argmin", "input": kind, "dtype": "torch.float32",
@@ -190,6 +205,24 @@ def main() -> int:
         if not err < TOL_KERNEL_PX:
             raise AssertionError(f"band kernel {kind}: {err} px")
         band_err = max(band_err, err)
+
+    # A 300x cost (a span of thousands of units): the kernels and the fp32
+    # plain versions, each against float64. Measured, not held to
+    # TOL_KERNEL_PX: fp32 rounding of the cost (the conv's sum, the blends)
+    # moves near-tied minima that lie far apart, and fp32 plain code errs
+    # as much.
+    wide = {}
+    v300, k300 = head_inputs(gen, "peaky", b, c, d, h, w, dev)
+    v300, k300 = v300.to(torch.bfloat16), SPAN_300 * k300
+    ref = conv_soft_argmin_reference(v300.double(), k300.double(), maxdisp)
+    wide["fused_head_sm90"] = (conv_soft_argmin_sm90(v300, k300, maxdisp).double() - ref).abs().max().item()
+    wide["fused_head_plain_fp32"] = (conv_soft_argmin_reference(v300.float(), k300, maxdisp).double() - ref).abs().max().item()
+    c300 = SPAN_300 * peaky_cost(gen, b, d, h, w, dev)
+    ref = soft_argmin(c300.double(), maxdisp)
+    wide["band_soft_argmin"] = (soft_argmin_cuda(c300, maxdisp).double() - ref).abs().max().item()
+    wide["band_plain_fp32"] = (soft_argmin(c300, maxdisp).double() - ref).abs().max().item()
+    emit({"phase": "wide_span_300x", "max_abs_err_px": wide})
+    del v300, c300, ref
 
     vol = vol32.to(torch.bfloat16)  # main path: bf16 volume
     kern16 = kern.to(torch.bfloat16)
@@ -208,7 +241,7 @@ def main() -> int:
     band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
     band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
     out_bytes = b * 9 * h * w * 4
-    exps = b * 9 * h * w * 3 * d
+    exps = b * 9 * h * w * d  # one per low-res plane and output phase
     head_flops = 2 * 27 * c * b * d * h * w
     head_bound = bound(vol.numel() * 2 + kern.numel() * 4 + out_bytes, head_flops, torch.bfloat16, exps)
     band_bound = bound(cost.numel() * 4 + out_bytes, 0, torch.float32, exps)
@@ -216,8 +249,19 @@ def main() -> int:
           "fused_head_sm90_bf16_weights_ms": sm90_bf16w_ms, "fused_head_pr1_ms": head_ms,
           "unfused_ms": unfused_ms, "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
           "band_ms": band_ms, "band_plain_ms": band_plain_ms, "band_bound_ms": band_bound[0],
+          "band_bound_by": band_bound[1], "exponentials": exps,
           "note": "ms: best of two turns (sm90, first design, unfused, first design, sm90, unfused); "
                   "fused heads take the fp32 kernel, the unfused cuDNN conv its bf16 rounding"})
+
+    # The band kernel's grid at KITTI against the card's resident-block slots.
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    band_blocks = b * -(-h // _build.BAND_TILE_H) * -(-w // _build.BAND_TILE_W)
+    band_per_sm = _build.load_kernels().lst_band_blocks_per_sm(d)
+    emit({"phase": "band_grid", "card": card, "tile": [_build.BAND_TILE_H, _build.BAND_TILE_W],
+          "blocks": band_blocks, "blocks_per_sm": band_per_sm, "slots": band_per_sm * sms,
+          "waves": band_blocks / (band_per_sm * sms), "smem_bytes": _build.band_smem_bytes(d)})
+    if band_per_sm < 1:
+        raise AssertionError(f"band kernel occupancy query failed: {band_per_sm}")
 
     # What limits the first design (head_kernel<bf16>, 8 x 32 tiles, one
     # 512-thread block per SM by shared memory and registers): its time at

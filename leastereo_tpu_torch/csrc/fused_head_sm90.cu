@@ -35,6 +35,9 @@
 //    its clamped in-frame site (edge replication after the conv), sums its
 //    9 (kh, kw) taps per kd and adds them into cost planes d-kd+1, carried
 //    in registers until a plane is complete: 27 fp32 adds per cost element.
+//  * The shared stage (heads_common.cuh) runs on all 8 warps: its 384
+//    (pixel, output row phase) units go to 256 threads, two to each of the
+//    first 128.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime, no -lcuda
 #include <cuda_bf16.h>
@@ -47,8 +50,7 @@ namespace {
 
 constexpr int TH = 8;                  // low-res rows per block
 constexpr int TW = 16;                 // low-res cols per block
-constexpr int THREADS = 256;           // 8 warps: contraction and tap sum
-constexpr int OUT_THREADS = TH * TW;   // shared stage: one low-res pixel per thread
+constexpr int THREADS = 256;           // 8 warps: contraction, tap sum and the shared stage
 constexpr int WARPS = THREADS / 32;
 constexpr int HR = TH + 2;             // cost tile rows (+-1 halo)
 constexpr int WR = TW + 2;             // cost tile cols (+-1 halo)
@@ -272,10 +274,9 @@ head_sm90_kernel(const __grid_constant__ CUtensorMap vmap, const float* __restri
   }
   if (owner) tile[(D - 1) * PLANE + tid] = a_prev;  // plane D (zero padding) adds nothing
   __syncthreads();
-  // The stage masks pixels past the frame; pixels left of it (j < 0, first
-  // tile column only) are masked here.
-  if (tid < OUT_THREADS && j0 + tid % TW >= 0)
-    heads::upsample_softmin_store<TH, TW>(tile, D, out, b, i0, j0, h, w);
+  // All 256 threads run the stage; it masks pixels outside the frame,
+  // including those left of it (j < 0, first tile column only).
+  heads::upsample_softmin_store<TH, TW, THREADS>(tile, D, out, b, i0, j0, h, w);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,

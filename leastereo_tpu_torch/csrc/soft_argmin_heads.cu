@@ -14,24 +14,35 @@
 //    pre-head volume (B, C, D, h, w), accumulated in fp32 for fp32 and bf16
 //    volumes alike, so the cost never reaches device memory.
 //
-// Tiling: a block owns TH x TW low-resolution pixels (3TH x 3TW outputs) and
-// keeps the cost tile as fp32 [D][TH+2][TW+2] in shared memory. Tile sites
-// outside the frame take the value of the nearest in-frame site: that is the
-// upsample's edge replication, and for the fused head it is applied after the
-// conv (the conv is evaluated at the clamped site). Ragged frames are handled
-// by clamping loads and masking stores.
+// Tiling: a block owns a tile of low-resolution pixels and keeps its cost
+// as fp32 [D][rows+2][cols+2] in shared memory. Tile sites outside the frame
+// take the value of the nearest in-frame site: that is the upsample's edge
+// replication, and for the fused head it is applied after the conv (the conv
+// is evaluated at the clamped site). Ragged frames are handled by clamping
+// loads and masking stores. Every thread of a block runs the shared stage.
 //
-// What bounds them on the H100: the band kernel does 3D exponentials per
-// output pixel (92 M per KITTI frame) against 13.6 MB of input, so the
-// special-function units bound it, not memory. The fused head's conv is
-// 27*C multiply-adds per cost element (5.9 GFLOP per KITTI frame) on CUDA
-// cores; its ~200 KB of shared memory allows one block per SM, so the latency
-// of staging each input channel and the FMA throughput bound it, far above
-// its 218 MB read. The design keeps each input element in shared memory for
-// all 27 taps (one staged slab per channel, halo amplification
-// (TH+4)(TW+4)/(TH*TW) = 1.7x), runs 512 threads so more staging loads are in
-// flight, and blocks the conv over 8 disparities per work item, so each slab
-// value read feeds up to three taps. This kernel serves fp32 volumes and the
+// What bounds them on the H100: the band kernel needs 9D exponentials per
+// low-res pixel (30.7 M per KITTI frame: 0.0073 ms on the special-function
+// units) against 15.5 MB of traffic (0.0046 ms), but neither is what its
+// time follows: that is the instructions its shared stage issues per low-res
+// pixel, plane and output row phase over both passes (blends, the min, the
+// products and sums, loop overhead); timed without the exponentials it is no
+// faster. Its design: 1 x 32 tiles, 96 threads (one per pixel and output row
+// phase, a warp on one row: conflict-free shared loads), 26,112 B of shared
+// memory at D = 64, so 8 blocks an SM; each SM runs 12 or 13 of the 1664
+// KITTI blocks. A block copies its tile with 4-byte cp.async (clamped source
+// offsets computed once per site), waits, and runs the stage; the loads
+// overlap compute across the blocks resident on an SM. (Running the min pass
+// over D-chunks as they landed measured slower.)
+//
+// The fused head's conv is 27*C multiply-adds per cost element (5.9 GFLOP
+// per KITTI frame) on CUDA cores; its ~200 KB of shared memory allows one
+// block per SM, so the latency of staging each input channel and the FMA
+// throughput bound it, far above its 218 MB read. The design keeps each
+// input element in shared memory for all 27 taps (one staged slab per
+// channel, halo amplification (TH+4)(TW+4)/(TH*TW) = 1.7x), runs 512 threads
+// so more staging loads are in flight, and blocks the conv over 8
+// disparities per work item, so each slab value read feeds up to three taps. This kernel serves fp32 volumes and the
 // bf16 shapes that fused_head_sm90.cu (TMA staging, tensor-core channel
 // contraction) does not take.
 
@@ -42,10 +53,19 @@
 
 namespace {
 
+// Band kernel geometry.
+constexpr int BTH = 1;                   // low-res rows per block
+constexpr int BTW = 32;                  // low-res cols per block
+constexpr int BMIN_BLOCKS = 8;           // resident blocks an SM (registers capped to fit)
+constexpr int BTHREADS = 3 * BTH * BTW;  // one (pixel, output row phase) unit per thread
+constexpr int BWR = BTW + 2;             // cost tile cols (+-1 halo)
+constexpr int BPLANE = (BTH + 2) * BWR;
+constexpr int BSITES = (BPLANE + BTHREADS - 1) / BTHREADS;  // tile sites each thread loads
+
+// Fused head (first design) geometry.
 constexpr int TH = 8;               // low-res rows per block
 constexpr int TW = 32;              // low-res cols per block
-constexpr int THREADS = TH * TW;    // one low-res pixel per thread in the shared stage
-constexpr int HEAD_THREADS = 2 * THREADS;  // fused head: more loads in flight while staging
+constexpr int HEAD_THREADS = 512;   // more loads in flight while staging; all run the stage
 constexpr int HR = TH + 2;          // cost tile rows (+-1 halo)
 constexpr int WR = TW + 2;          // cost tile cols (+-1 halo)
 constexpr int PLANE = HR * WR;
@@ -58,21 +78,33 @@ __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 using heads::clampi;
-using heads::upsample_softmin_store;
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+__global__ void __launch_bounds__(BTHREADS, BMIN_BLOCKS)
 band_kernel(const float* __restrict__ cost, float* __restrict__ out, int D, int h, int w) {
-  extern __shared__ float tile[];
-  const int b = blockIdx.z, i0 = blockIdx.y * TH, j0 = blockIdx.x * TW;
-  const float* src = cost + (size_t)b * D * h * w;
-  for (int idx = threadIdx.x; idx < D * PLANE; idx += THREADS) {
-    const int d = idx / PLANE, rem = idx % PLANE;
-    const int gi = clampi(i0 - 1 + rem / WR, 0, h - 1);
-    const int gj = clampi(j0 - 1 + rem % WR, 0, w - 1);
-    tile[idx] = src[((size_t)d * h + gi) * w + gj];
+  extern __shared__ float tile[];  // [D][BTH+2][BTW+2]
+  const int b = blockIdx.z, i0 = blockIdx.y * BTH, j0 = blockIdx.x * BTW;
+  const size_t hw = (size_t)h * w;
+  // Thread t loads tile sites t + k BTHREADS of every plane, each from its
+  // clamped source.
+#pragma unroll
+  for (int k = 0; k < BSITES; ++k) {
+    const int s = threadIdx.x + k * BTHREADS;
+    if (s < BPLANE) {
+      const float* src = cost + (size_t)b * D * hw + (size_t)clampi(i0 - 1 + s / BWR, 0, h - 1) * w +
+                         clampi(j0 - 1 + s % BWR, 0, w - 1);
+      for (int d = 0; d < D; ++d) cp_async4(tile + d * BPLANE + s, src + d * hw);
+    }
   }
+  cp_async_wait_all();
   __syncthreads();
-  upsample_softmin_store<TH, TW>(tile, D, out, b, i0, j0, h, w);
+  heads::upsample_softmin_store<BTH, BTW, BTHREADS>(tile, D, out, b, i0, j0, h, w);
 }
 
 __host__ __device__ inline int padded_depth(int D) { return (D + DCHUNK - 1) / DCHUNK * DCHUNK; }
@@ -143,16 +175,16 @@ head_kernel(const T* __restrict__ vol, const float* __restrict__ kern, float* __
     }
   }
   __syncthreads();
-  if (threadIdx.x < THREADS) upsample_softmin_store<TH, TW>(tile, D, out, b, i0, j0, h, w);
+  heads::upsample_softmin_store<TH, TW, HEAD_THREADS>(tile, D, out, b, i0, j0, h, w);
 }
 
-size_t band_smem_bytes(int D) { return (size_t)D * PLANE * sizeof(float); }
+size_t band_smem_bytes(int D) { return (size_t)D * BPLANE * sizeof(float); }
 
 size_t head_smem_bytes(int C, int D) {
   return ((size_t)D * PLANE + (size_t)(padded_depth(D) + 2) * SPLANE + (size_t)C * 27) * sizeof(float);
 }
 
-dim3 grid_for(int B, int h, int w) { return dim3((w + TW - 1) / TW, (h + TH - 1) / TH, B); }
+dim3 grid_for(int B, int h, int w, int th, int tw) { return dim3((w + tw - 1) / tw, (h + th - 1) / th, B); }
 
 template <typename T>
 int launch_head(const void* vol, const void* kern, void* out, int B, int C, int D, int h, int w,
@@ -161,7 +193,7 @@ int launch_head(const void* vol, const void* kern, void* out, int B, int C, int 
   cudaError_t err = cudaFuncSetAttribute(head_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
-  head_kernel<T><<<grid_for(B, h, w), HEAD_THREADS, smem, stream>>>(
+  head_kernel<T><<<grid_for(B, h, w, TH, TW), HEAD_THREADS, smem, stream>>>(
       static_cast<const T*>(vol), static_cast<const float*>(kern), static_cast<float*>(out), C, D, h, w);
   return (int)cudaGetLastError();
 }
@@ -177,12 +209,23 @@ const char* lst_error_string(int err) { return cudaGetErrorString((cudaError_t)e
 long long lst_band_smem_bytes(int D) { return (long long)band_smem_bytes(D); }
 long long lst_head_smem_bytes(int C, int D) { return (long long)head_smem_bytes(C, D); }
 
+// Band kernel blocks resident on one SM at depth D (registers and shared
+// memory), or -1 on an error.
+int lst_band_blocks_per_sm(int D) {
+  const size_t smem = band_smem_bytes(D);
+  if (cudaFuncSetAttribute(band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem) != cudaSuccess)
+    return -1;
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, band_kernel, BTHREADS, smem) != cudaSuccess) return -1;
+  return blocks;
+}
+
 // cost: (B, D, h, w) fp32 contiguous; out: (B, 3h, 3w) fp32 contiguous.
 int lst_band_soft_argmin(const void* cost, void* out, int B, int D, int h, int w, void* stream) {
   const size_t smem = band_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(band_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  band_kernel<<<grid_for(B, h, w), THREADS, smem, (cudaStream_t)stream>>>(
+  band_kernel<<<grid_for(B, h, w, BTH, BTW), BTHREADS, smem, (cudaStream_t)stream>>>(
       static_cast<const float*>(cost), static_cast<float*>(out), D, h, w);
   return (int)cudaGetLastError();
 }

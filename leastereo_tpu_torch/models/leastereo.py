@@ -14,7 +14,7 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
   kernel.
 
 A refused fused head is logged once per reason and falls to the band kernel;
-a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 170``)
+a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 569``)
 raises rather than run the plain version on the card. On a CPU tensor each
 kernel wrapper runs its plain version. Inputs are NHWC
 ``(B, H, W, 3)`` with H, W divisible by 3 (and by 12 at 1/3 resolution for

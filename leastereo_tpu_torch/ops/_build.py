@@ -29,10 +29,12 @@ __all__ = [
 ]
 
 # Tile geometry of csrc/soft_argmin_heads.cu: TH x TW low-res pixels per
-# block, DCHUNK disparities per conv work item of the fused head. The
+# block of the fused head (first design), DCHUNK disparities per conv work
+# item; BAND_TILE_H x BAND_TILE_W per block of the band kernel. The
 # shared-memory formulas below are checked against the library's own when it
 # loads.
 TILE_H, TILE_W, DCHUNK = 8, 32, 8
+BAND_TILE_H, BAND_TILE_W = 1, 32
 SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper (227 KB)
 
 # Geometry of csrc/fused_head_sm90.cu: TH x TW = 8 x 16 low-res pixels per
@@ -45,15 +47,16 @@ _SM90_P = 27 * ((SM90_TILE_H + 4) * (SM90_TILE_W + 4) + 4)
 
 
 def band_smem_bytes(d: int) -> int:
-    """Shared memory of the band kernel: the fp32 cost tile [D][TH+2][TW+2]."""
-    return 4 * d * (TILE_H + 2) * (TILE_W + 2)
+    """Shared memory of the band kernel: its fp32 cost tile [D][TH+2][TW+2]."""
+    return 4 * d * (BAND_TILE_H + 2) * (BAND_TILE_W + 2)
 
 
 def head_smem_bytes(channels: int, d: int) -> int:
-    """Shared memory of the fused head: cost tile, one staged input channel
-    [ceil8(D)+2][TH+4][TW+4] and the conv weights, all fp32."""
+    """Shared memory of the fused head: cost tile [D][TH+2][TW+2], one staged
+    input channel [ceil8(D)+2][TH+4][TW+4] and the conv weights, all fp32."""
     dp = -(-d // DCHUNK) * DCHUNK
-    return band_smem_bytes(d) + 4 * ((dp + 2) * (TILE_H + 4) * (TILE_W + 4) + 27 * channels)
+    cost = d * (TILE_H + 2) * (TILE_W + 2)
+    return 4 * (cost + (dp + 2) * (TILE_H + 4) * (TILE_W + 4) + 27 * channels)
 
 
 def head_sm90_smem_bytes(channels: int, d: int) -> int:
@@ -118,6 +121,8 @@ def load_kernels() -> ctypes.CDLL:
     lib.lst_error_string.restype = ctypes.c_char_p
     lib.lst_band_smem_bytes.argtypes = [i]
     lib.lst_band_smem_bytes.restype = ctypes.c_longlong
+    lib.lst_band_blocks_per_sm.argtypes = [i]
+    lib.lst_band_blocks_per_sm.restype = i
     lib.lst_head_smem_bytes.argtypes = [i, i]
     lib.lst_head_smem_bytes.restype = ctypes.c_longlong
     lib.lst_band_soft_argmin.argtypes = [p, p, i, i, i, i, p]
@@ -131,7 +136,7 @@ def load_kernels() -> ctypes.CDLL:
     # The gates decide with the formulas above: hold them to the built layout
     # (D not a multiple of DCHUNK included) so a gate never admits a shape
     # the kernel cannot launch.
-    for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 170)):
+    for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 170), (32, 569)):
         host = (band_smem_bytes(d), head_smem_bytes(c, d), head_sm90_smem_bytes(c, d))
         built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d), lib.lst_head_sm90_smem_bytes(c, d))
         if host != built:

@@ -8,11 +8,13 @@ pass that reads the ``(B, D, h, w)`` cost once and writes the ``(B, 3h, 3w)``
 map, where the plain version holds several ``(B, D, 3h, 3w)`` fp32 phase
 tensors in device memory.
 
-On the H100 the kernel is bound by its 3D exponentials per output pixel
-(special-function units), not by its 15 MB of traffic; a block keeps a
-``D x (TH+2) x (TW+2)`` cost tile in shared memory and each thread produces
-the 9 output phases of one low-res pixel in registers, so every exponential
-is computed once and nothing intermediate leaves the chip.
+On the H100 the kernel computes one exponential per low-res plane and output
+phase (9D per low-res pixel) and is bound by the instructions its shared
+stage issues per pixel and plane, not by its exponentials or its 15.5 MB of
+traffic. A block keeps a ``D x (1+2) x (32+2)`` cost tile in shared memory,
+loaded with ``cp.async``; each of its 96 threads produces the 3 output phases of one output row of one low-res
+pixel in registers, so nothing intermediate leaves the chip. Its shared
+memory admits D <= 569.
 """
 
 from __future__ import annotations

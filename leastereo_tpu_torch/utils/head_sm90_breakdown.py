@@ -29,7 +29,7 @@ _SRC = _build._CSRC / "fused_head_sm90.cu"
 _OUT = _build.BUILD_DIR / "breakdown"
 SHAPE = (1, 32, 64, 128, 416)  # (B, C, D, h, w)
 
-_SOFTMIN = "  if (tid < OUT_THREADS && j0 + tid % TW >= 0)\n"
+_SOFTMIN = "  heads::upsample_softmin_store<TH, TW, THREADS>("
 _TAP_SUM = "    if (owner) {\n      float q[3];"
 _MT_LOOP = "    for (int mt = warp; mt < MTILES; mt += WARPS) {"
 _WAIT = "    mbar_wait(smem_u32(&full[s]), (din / STAGES) & 1);"
@@ -42,7 +42,7 @@ def _variants(src: str) -> dict[str, str]:
         if part not in src:
             raise RuntimeError(f"fused_head_sm90.cu no longer contains {part!r}; update the variants")
     # `D < 0` is never true but unknown to the compiler, so nothing else is folded away.
-    no_softmin = src.replace(_SOFTMIN, "  if (D < 0)\n")
+    no_softmin = src.replace(_SOFTMIN, "  if (D < 0) " + _SOFTMIN.lstrip())
     no_tap_sum = src.replace(_TAP_SUM, "    if (D < 0) {\n      float q[3];")
     no_contraction = src.replace(_MT_LOOP, "    for (int mt = warp; mt < (D < 0 ? MTILES : 0); mt += WARPS) {")
     no_tma = (
@@ -51,7 +51,7 @@ def _variants(src: str) -> dict[str, str]:
         .replace(_LOAD_NEXT, "    if (D < 0) {")
     )
     loop_no_compute = (
-        no_contraction.replace(_SOFTMIN, "  if (D < 0)\n").replace(_TAP_SUM, "    if (D < 0) {\n      float q[3];")
+        no_contraction.replace(_SOFTMIN, "  if (D < 0) " + _SOFTMIN.lstrip()).replace(_TAP_SUM, "    if (D < 0) {\n      float q[3];")
     )
     return {
         "full": src,

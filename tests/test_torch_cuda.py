@@ -45,10 +45,20 @@ def _peaky_cost(b, d, h, w, seed=0):
     return (0.35 * np.abs(planes - best) + 0.8 * rng.randn(b, d, h, w)).astype(np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1, 8, 16, 24), (2, 16, 20, 40), (1, 64, 128, 416)])
-def test_band_kernel(dev, shape):
+# (b, d, h, w), cost scale. Ragged against the band kernel's 1 x 32 tile,
+# odd D, Middlebury's D = 136 (maxdisp 408), D = 170, wide-span costs: 300x
+# at a small shape, 10x at KITTI (at 300x and KITTI's size fp32 rounding of
+# the blended cost alone moves the result by ~3e-3 px, kernel and plain
+# fp32 code alike).
+BAND_CASES = [((1, 8, 16, 24), 1.0), ((2, 16, 20, 40), 1.0), ((1, 64, 128, 416), 1.0), ((2, 8, 19, 37), 1.0),
+              ((1, 13, 16, 24), 1.0), ((1, 136, 24, 40), 1.0), ((1, 170, 9, 20), 1.0), ((1, 8, 16, 24), 300.0),
+              ((1, 64, 128, 416), 10.0)]
+
+
+@pytest.mark.parametrize("shape,scale", BAND_CASES)
+def test_band_kernel(dev, shape, scale):
     b, d, h, w = shape
-    cost = torch.from_numpy(_peaky_cost(b, d, h, w)).to(dev)
+    cost = torch.from_numpy(_peaky_cost(b, d, h, w) * np.float32(scale)).to(dev)
     n = soft_argmin_cuda.launches
     got = soft_argmin_cuda(cost, 3 * d)
     torch.cuda.synchronize()
@@ -126,7 +136,7 @@ def test_wrappers_raise_instead_of_falling_back(dev):
     with pytest.raises(ValueError):
         soft_argmin_cuda(torch.zeros(1, 8, 16, 16, dtype=torch.float64, device=dev), 24)
     with pytest.raises(ValueError, match="shared memory"):
-        soft_argmin_fused(torch.zeros(1, 171, 4, 4, device=dev), 513)
+        soft_argmin_fused(torch.zeros(1, 570, 4, 4, device=dev), 1710)
     with pytest.raises(ValueError):
         conv_soft_argmin_cuda(
             torch.zeros(1, 4, 8, 16, 16, dtype=torch.float16, device=dev),

@@ -156,7 +156,9 @@ def test_gates():
     assert "shared memory" in fused_head_gate_reason(32, 136, 408, torch.bfloat16)
     assert band_gate_reason(136, 408) is None
     assert band_gate_reason(170, 510) is None
-    assert "shared memory" in band_gate_reason(171, 513)
+    # The band kernel's 1 x 32 tile: 408 B a plane, D <= 569.
+    assert band_gate_reason(569, 1707) is None
+    assert "shared memory" in band_gate_reason(570, 1710)
     assert "maxdisp" in band_gate_reason(64, 191)
     # The sm90 kernel: bf16, C a multiple of 16 up to 64, w a multiple of 8.
     assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.bfloat16) is None
@@ -265,3 +267,72 @@ def test_weight_split_keeps_fp32_weights():
     assert torch.equal(sum(_bf16_parts(w, 3)), w)
     # bf16 weights (the main path's) have zero second and third parts.
     assert all(torch.equal(p, torch.zeros_like(p)) for p in _bf16_parts(w.bfloat16().float(), 3)[1:])
+
+
+# Geometry of the shared stage (csrc/heads_common.cuh) in each kernel that
+# runs it: (tile rows, tile cols, threads, column shift of the first tile).
+STAGE_GEOMETRY = {"band": (1, 32, 96, 0), "head": (8, 32, 512, 0), "sm90": (SM90_TH, SM90_TW, 256, SM90_SHIFT)}
+# (shape, cost scale): the band shapes, a wide-span cost and D = 13.
+STAGE_CASES = [(s, 1.0) for s in BAND_SHAPES] + [((1, 8, 16, 24), 300.0), ((1, 13, 16, 24), 1.0)]
+
+
+def _stage_phases(cost: torch.Tensor) -> torch.Tensor:
+    """The stage's arithmetic in plain fp32 torch, ``(B, D, h, w)`` ->
+    ``(B, 3, 3, h, w)`` (rh, rw phases): c_k blended H then W from the
+    edge-replicated cost, pass 1 m = min_k c_k, pass 2 one exponential
+    u_k = 2^((m - c_k) log2(e) / 3) per plane and phase, and the three
+    disparity phases as the products u_{k-1} u_k^2, u_k^3, u_k^2 u_{k+1}."""
+    b, d, h, w = cost.shape
+    x = F.pad(cost, (1, 1, 1, 1), mode="replicate")
+    third, two_third = torch.tensor(1.0 / 3.0), torch.tensor(2.0 / 3.0)
+    rows = [third * x[:, :, 0:h] + two_third * x[:, :, 1 : h + 1], x[:, :, 1 : h + 1],
+            two_third * x[:, :, 1 : h + 1] + third * x[:, :, 2 : h + 2]]
+    c = torch.stack([torch.stack([third * r[..., 0:w] + two_third * r[..., 1 : w + 1], r[..., 1 : w + 1],
+                                  two_third * r[..., 1 : w + 1] + third * r[..., 2 : w + 2]], dim=2)
+                     for r in rows], dim=2)  # (B, D, rh, rw, h, w)
+    m = c.amin(dim=1, keepdim=True)
+    u = torch.exp2((m - c) * torch.tensor(1.4426950408889634 / 3.0))
+    up = torch.cat([u[:, :1], u[:, :-1]], dim=1)
+    un = torch.cat([u[:, 1:], u[:, -1:]], dim=1)
+    s, sq = up + u + un, u * u
+    i3 = 3.0 * torch.arange(d, dtype=torch.float32).view(1, d, 1, 1, 1, 1)
+    return (sq * (i3 * s + u + 2.0 * un)).sum(1) / (sq * s).sum(1)
+
+
+def _stage_replay(cost: torch.Tensor, th: int, tw: int, nt: int, shift: int) -> torch.Tensor:
+    """The stage's output assembled as the kernel's threads write it: tile by
+    tile, unit u = thread + r * nt is (row phase u // (th tw), pixel
+    u % (th tw)) and stores the 3 column phases of one output row. Every
+    output is written exactly once (checked)."""
+    b, d, h, w = cost.shape
+    phases = _stage_phases(cost)
+    out = torch.full((b, 3 * h, 3 * w), float("nan"))
+    writes = torch.zeros(b, 3 * h, 3 * w, dtype=torch.int32)
+    pix = th * tw
+    for i0 in range(0, h, th):
+        for j0 in range(-shift, w, tw):
+            for r in range(-(-3 * pix // nt)):
+                unit = torch.arange(nt) + r * nt
+                unit = unit[unit < 3 * pix]
+                rh, p = unit // pix, unit % pix
+                gi, gj = i0 + p // tw, j0 + p % tw
+                keep = (gi < h) & (gj < w) & (gj >= 0)
+                rh, gi, gj = rh[keep], gi[keep], gj[keep]
+                for k in range(3):
+                    out[:, 3 * gi + rh, 3 * gj + k] = phases[:, rh, k, gi, gj]
+                    writes[:, 3 * gi + rh, 3 * gj + k] += 1
+    assert torch.equal(writes, torch.ones_like(writes))
+    return out
+
+
+@pytest.mark.parametrize("kernel", list(STAGE_GEOMETRY))
+@pytest.mark.parametrize("case", STAGE_CASES)
+def test_stage_arithmetic_matches_pallas(case, kernel):
+    (b, d, h, w), scale = case
+    cost = _peaky_cost(b, d, h, w, seed=7) * np.float32(scale)
+    ref = np.asarray(soft_argmin_pallas(jnp.asarray(cost), 3 * d, True))
+    got = _stage_replay(torch.from_numpy(cost), *STAGE_GEOMETRY[kernel]).numpy()
+    assert got.shape == (b, 3 * h, 3 * w)
+    # fp32 on both sides, exp2 of a third of the exponent and products in
+    # place of three exponentials: 1e-3 px, as test_band_plain_matches_pallas.
+    np.testing.assert_allclose(got, ref, atol=1e-3)
