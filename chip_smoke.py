@@ -28,6 +28,17 @@ caught, so any failure exits non-zero):
    (the first fused head design and the band kernel; counts zeroed just
    before and read just after).
 7. gate refusal: a cost the band kernel refuses raises on the card.
+8. cli: the predict and evaluate drivers (``leastereo_tpu_torch.cli``)
+   called in-process on the bundled KITTI frames (``dataset/kitti15_part``)
+   at 384x1248, maxdisp 192, with phase 4's weights saved as a torch file
+   and given as ``--checkpoint``, writing into a temporary directory:
+   evaluate on the 4 ``train`` frames by default (sm90 head), with
+   ``--confidence`` (band kernel) and with ``--dtype float32`` (the first
+   fused head design), then predict on the ``test`` frame. Each run's
+   outputs, metrics and launch counts (zeroed just before, read just after:
+   one launch of its head per frame, none of the others) are checked, and
+   frame 0 of the default run is held against phase 4's model called
+   directly. Prints each run's per-frame load, ``run_frame`` and save times.
 
 Then the kernel table, the card line and, last, the result line. Exits
 non-zero without printing a result when no CUDA card is present.
@@ -35,10 +46,15 @@ non-zero without printing a result when no CUDA card is present.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import os
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -67,6 +83,21 @@ TOL_KERNEL_PX = 2e-3  # kernels against float64 plain versions
 SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
+TOL_CLI_PX = 2e-3  # the evaluate driver's frame 0 against the model called directly
+
+REPO = pathlib.Path(__file__).resolve().parent
+KITTI_ROOT = str(REPO / "dataset" / "kitti15_part")  # 324x576 frames
+CLI_H, CLI_W = 384, 1248
+KITTI_ARGS = ["--dataset", "kitti15_part", "--data_root", KITTI_ROOT,
+              "--listset", "kitti15_part", "--lists_dir", str(REPO / "dataloaders" / "lists"),
+              "--crop_height", str(CLI_H), "--crop_width", str(CLI_W), "--maxdisp", "192", "--device", "cuda"]
+# (run, driver, split, flags, the head each frame must launch)
+CLI_RUNS = (
+    ("evaluate", "evaluate", "train", [], "fused_head_sm90"),
+    ("evaluate --confidence", "evaluate", "train", ["--confidence"], "band_soft_argmin"),
+    ("evaluate --dtype float32", "evaluate", "train", ["--dtype", "float32"], "fused_head"),
+    ("predict", "predict", "test", [], "fused_head_sm90"),
+)
 
 
 def emit(obj) -> None:
@@ -121,6 +152,113 @@ def head_inputs(gen, kind, b, c, d, h, w, dev):
     else:
         kern = 0.2 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
     return vol, kern
+
+
+def _timed(fn, ms: list):
+    """``fn``, appending the wall ms of each call to ``ms``."""
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        ms.append(1e3 * (time.perf_counter() - t0))
+        return out
+
+    return timed
+
+
+@contextlib.contextmanager
+def stage_times(calls: dict, returned: dict):
+    """While the block runs, time every call of each function
+    ``calls[label] = (owner, name)`` and of each function that
+    ``returned[label] = (owner, name)`` returns (wall ms, a list per label)."""
+    times = {label: [] for label in {**calls, **returned}}
+    saved = []
+    for label, (owner, name) in calls.items():
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, _timed(saved[-1][2], times[label]))
+    for label, (owner, name) in returned.items():
+        saved.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, lambda *a, _fn=saved[-1][2], _ms=times[label], **k: _timed(_fn(*a, **k), _ms))
+    try:
+        yield times
+    finally:
+        for owner, name, fn in reversed(saved):
+            setattr(owner, name, fn)
+
+
+def cli_phase(model, counters: dict, card: str) -> dict:
+    """Phase 8: the drivers' ``main(argv)`` on the bundled KITTI frames with
+    ``model``'s weights as ``--checkpoint``. Returns each run's launches."""
+    from leastereo_tpu_torch.cli import evaluate, predict
+    from leastereo_tpu_torch.data import ListSet, StereoListDataset
+
+    H, W = CLI_H, CLI_W
+    dev = next(model.parameters()).device
+    lists = ListSet.resolve("kitti15_part", str(REPO / "dataloaders" / "lists"))
+    # PyTorch's default, which a user's process has (phase 1 turned it off).
+    torch.backends.cudnn.allow_tf32 = True
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "kitti_bf16.pth")
+        torch.save(model.state_dict(), ckpt)
+        for run, driver, split, flags, head in CLI_RUNS:
+            mod = predict if driver == "predict" else evaluate
+            out = os.path.join(tmp, run.replace(" ", "_").replace("-", ""))
+            argv = KITTI_ARGS + ["--split", split, "--checkpoint", ckpt, "--output_dir", out] + flags
+            with open(getattr(lists, split)) as f:
+                names = [ln.strip().replace("/", "_") for ln in f if ln.strip()]
+            for fn in counters.values():
+                fn.launches = 0
+            printed = io.StringIO()
+            # run_frame: pad, forward, un-pad; forward: H2D, the model, D2H.
+            stages = {"load": (StereoListDataset, "load_stack"), "run_frame": (mod, "run_frame"),
+                      "save": (mod, "save_frame")}
+            with stage_times(stages, {"forward": (mod, "make_forward")}) as ms, contextlib.redirect_stdout(printed):
+                rc = mod.main(argv)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            frames = len(ms["run_frame"])
+            if rc != 0 or frames != len(names):
+                raise AssertionError(f"cli {run}: rc {rc}, {frames} frames of {len(names)}")
+            if launches != {k: (frames if k == head else 0) for k in counters}:
+                raise AssertionError(f"cli {run}: launches {launches}, expected {frames} of {head} only")
+            suffixes = ([".png", ".npy"] if driver == "predict" else
+                        ["_pred.png", "_gt.png", "_err.png", "_pred.npy", "_metrics.txt"])
+            suffixes += ["_conf.png", "_conf.npy"] if "--confidence" in flags else []
+            missing = [n + s for n in names for s in suffixes if not os.path.isfile(os.path.join(out, n + s))]
+            if missing:
+                raise AssertionError(f"cli {run}: missing outputs {missing}")
+            metrics = []
+            for n in names:
+                disp = np.load(os.path.join(out, n + (".npy" if driver == "predict" else "_pred.npy")))
+                if disp.shape != (324, 576) or not np.isfinite(disp).all():
+                    raise AssertionError(f"cli {run} {n}: prediction {disp.shape}, finite {np.isfinite(disp).all()}")
+                if driver == "evaluate":
+                    with open(os.path.join(out, n + "_metrics.txt")) as f:
+                        metrics.append({k: float(v) for k, v in (ln.split(": ") for ln in f.read().splitlines())})
+            means = {k: float(np.mean([m[k] for m in metrics])) for k in (metrics[0] if metrics else {})}
+            if not all(math.isfinite(v) for v in means.values()):
+                raise AssertionError(f"cli {run}: metrics {means}")
+            line = {"phase": "cli", "run": run, "card": card, "argv": ["--split", split] + flags, "frames": frames,
+                    **{f"{k}_ms_median": float(np.median(v)) for k, v in ms.items()},
+                    **{f"{k}_ms": v for k, v in ms.items()},
+                    "launches": launches, "metrics_mean": means, "cudnn_tf32": True,
+                    "note": "random seeded weights (phase 4's): the metrics show only that the pipeline runs"}
+            if run == "evaluate":
+                # Frame 0 against phase 4's model on the same padded input,
+                # un-padded the same way (after the counts were read).
+                ds = StereoListDataset("kitti15_part", lists.train, root=KITTI_ROOT, crop_size=(H, W), training=False)
+                s0 = ds[0]
+                with torch.inference_mode():
+                    direct = model(torch.from_numpy(s0.left[None]).to(dev), torch.from_numpy(s0.right[None]).to(dev))
+                direct = direct[0].float().cpu().numpy()[H - 324 :, W - 576 :]
+                got = np.load(os.path.join(out, names[0] + "_pred.npy"))
+                line["frame0_vs_model_max_abs_px"] = float(np.abs(got - direct).max())
+                line["frame0_tol_px"] = TOL_CLI_PX
+                if not line["frame0_vs_model_max_abs_px"] < TOL_CLI_PX:
+                    raise AssertionError(f"cli frame 0 differs from the model by {line['frame0_vs_model_max_abs_px']} px")
+            emit(line)
+            result[run] = {"head": head, "launches": launches[head], "frames": frames}
+    return result
 
 
 def calibrate_head(model, left, right) -> None:
@@ -381,7 +519,7 @@ def main() -> int:
           "device_ms_per_frame_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
           "top_kernels_ms_per_frame": [[e.key[:100], e.self_device_time_total / 1e3 / 3]
                                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]})
-    del model, model_conf, feats, pre, x
+    del model_conf, feats, pre, x  # phase 8 reuses the model
     torch.cuda.empty_cache()
 
     # ---- 6. whole model, kernel path vs plain path, fp32, reduced size
@@ -434,6 +572,13 @@ def main() -> int:
     if (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches, soft_argmin_cuda.launches) != counts:
         raise AssertionError("a refused cost launched a kernel")
 
+    # ---- 8. the predict and evaluate drivers on the bundled KITTI frames
+    counters = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head": conv_soft_argmin_simt,
+                "band_soft_argmin": soft_argmin_cuda}
+    cli = cli_phase(model, counters, card)
+    cli_of = {r["head"]: {"cli_run": run, "cli_launches": r["launches"], "cli_frames": r["frames"]}
+              for run, r in cli.items() if run != "predict"}
+
     # ---- kernel table, card, result
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
@@ -444,17 +589,19 @@ def main() -> int:
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
          "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
-         "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None},
+         "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
+         **cli_of["fused_head_sm90"]},
         {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
          "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
          "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
          "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
-         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None},
+         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None, **cli_of["fused_head"]},
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
          "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",
          "max_abs_err": band_err, "ms": band_ms,
-         "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None},
+         "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None,
+         **cli_of["band_soft_argmin"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

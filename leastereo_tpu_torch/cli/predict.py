@@ -1,0 +1,154 @@
+"""Batch-free inference driver (port of ``leastereo_tpu/cli/predict.py``;
+reference ``predict.py``).
+
+Per frame: load + standardize, sentinel-pad or center-crop to the inference
+shape, forward on the model's device, un-pad, save a turbo-colormapped PNG
+and the ``.npy`` disparity; prints per-frame wall time.
+
+    python -m leastereo_tpu_torch.cli.predict --dataset kitti15_part \
+        --listset kitti15_part --crop_height 384 --crop_width 1248
+
+``--checkpoint`` takes a torch state_dict file (``utils/checkpoint.py``),
+not an orbax directory.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from ..data import ListSet, StereoListDataset
+from ..data.loaders import uses_left_disparity
+from ..data.transforms import test_transform
+from ..utils.checkpoint import load_state_dict_file
+from ..utils.colorize import colorize_disparity
+from .common import Timer, build_model
+from .config import predict_parser
+
+__all__ = ["main", "run_frame", "make_forward", "pad_to_valid", "save_frame", "save_confidence"]
+
+
+def make_forward(model: torch.nn.Module):
+    """``fwd(left, right)``: NHWC float32 numpy batches -> the model's fp32
+    ``(B, H, W)`` disparity as numpy (a ``(disp, entropy)`` tuple when the
+    model returns the entropy), run under ``torch.inference_mode`` on the
+    model's device."""
+    device = next(model.parameters()).device
+
+    def fwd(left: np.ndarray, right: np.ndarray):
+        with torch.inference_mode():
+            out = model(
+                torch.from_numpy(np.ascontiguousarray(left, np.float32)).to(device),
+                torch.from_numpy(np.ascontiguousarray(right, np.float32)).to(device),
+            )
+        if isinstance(out, tuple):
+            return tuple(o.float().cpu().numpy() for o in out)
+        return out.float().cpu().numpy()
+
+    return fwd
+
+
+def pad_to_valid(h: int, w: int, multiple: int = 12) -> tuple[int, int]:
+    """Smallest model-valid (divisible by 3, and by 4 at 1/3 res) shape >= (h, w)."""
+    return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
+
+
+def run_frame(
+    fwd,
+    stack: np.ndarray,
+    crop_height: int,
+    crop_width: int,
+    use_left: bool = True,
+    full_frame: bool = False,
+):
+    """Pad-or-crop one frame, run the model, un-pad the prediction
+    (reference predict.py:144-174).
+
+    ``full_frame=True`` is a capability superset of the reference: frames
+    larger than the crop are sentinel-padded up to the next model-valid shape
+    and evaluated whole instead of center-cropped (the reference always
+    center-crops both prediction and ground truth, evaluation.py:288).
+
+    A ``fwd`` returning a tuple (e.g. ``(disp, entropy)`` with
+    ``--confidence``) yields a tuple of identically un-padded maps.
+    """
+    _, h, w = stack.shape
+    if full_frame:
+        crop_height, crop_width = pad_to_valid(max(h, crop_height), max(w, crop_width))
+    left, right, _ = test_transform(stack, crop_height, crop_width, use_left=use_left)
+    out = fwd(left[None], right[None])
+    is_tuple = isinstance(out, tuple)
+
+    def unpad(x):
+        x = np.asarray(x, np.float32)[0]
+        if h <= crop_height and w <= crop_width:
+            x = x[crop_height - h :, crop_width - w :]
+        return x
+
+    return tuple(unpad(o) for o in out) if is_tuple else unpad(out)
+
+
+def save_confidence(output_dir: str, name: str, entropy: np.ndarray) -> None:
+    """``<name>_conf.png`` (entropy over its max, gray) and ``<name>_conf.npy``."""
+    from PIL import Image
+
+    Image.fromarray(
+        (np.clip(entropy / max(entropy.max(), 1e-12), 0, 1) * 255).astype(np.uint8)
+    ).save(os.path.join(output_dir, f"{name}_conf.png"))
+    np.save(os.path.join(output_dir, f"{name}_conf.npy"), entropy)
+
+
+def save_frame(output_dir: str, name: str, disp: np.ndarray, entropy=None, gt=None, maxdisp: int = 192) -> None:
+    """``<name>.png`` (Turbo render) and ``<name>.npy``; the confidence maps
+    when ``entropy`` is given; ``<name>_gt.png`` when ``gt`` is."""
+    from PIL import Image
+
+    if entropy is not None:
+        save_confidence(output_dir, name, entropy)
+    Image.fromarray(colorize_disparity(disp)).save(os.path.join(output_dir, f"{name}.png"))
+    np.save(os.path.join(output_dir, f"{name}.npy"), disp)
+    if gt is not None:
+        Image.fromarray(colorize_disparity(gt, vmin=0, vmax=maxdisp)).save(
+            os.path.join(output_dir, f"{name}_gt.png")
+        )
+
+
+def main(argv=None) -> int:
+    args = predict_parser().parse_args(argv)
+
+    lists = ListSet.resolve(args.listset, args.lists_dir)
+    ds = StereoListDataset(
+        dataset=args.dataset,
+        list_file=getattr(lists, args.split),
+        root=args.data_root,
+        crop_size=(args.crop_height, args.crop_width),
+        training=False,
+    )
+
+    model = build_model(args)
+    if args.checkpoint:
+        load_state_dict_file(args.checkpoint, model)
+        print(f"loaded checkpoint {args.checkpoint}", flush=True)
+    fwd = make_forward(model)
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    use_left = uses_left_disparity(args.dataset)
+    for i in range(len(ds)):
+        stack = ds.load_stack(i)
+        with Timer() as t:
+            disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, full_frame=args.full_frame)
+        entropy = None
+        if isinstance(disp, tuple):
+            disp, entropy = disp
+        name = ds.entries[i].replace("/", "_")
+        gt = (stack[6] if use_left else stack[7]) if args.save_gt else None
+        save_frame(args.output_dir, name, disp, entropy, gt, args.maxdisp)
+        print(f"{ds.entries[i]}: {t.seconds:.3f}s  disp[{disp.min():.1f}, {disp.max():.1f}]", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

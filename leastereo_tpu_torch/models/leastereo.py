@@ -37,7 +37,7 @@ from .feature_net import FeatureNet
 from .genotypes import BEST_SCENEFLOW, Architecture
 from .matching_net import MatchingNet
 
-__all__ = ["LEAStereoConfig", "LEAStereo", "best_sceneflow_model"]
+__all__ = ["LEAStereoConfig", "LEAStereo", "best_sceneflow_model", "require_cuda"]
 
 logger = logging.getLogger(__name__)
 
@@ -103,7 +103,11 @@ class LEAStereo(nn.Module):
         """NHWC ``(B, H, W, 3)`` images -> ``(B, H, W)`` fp32 disparity."""
         cfg = self.config
         dtype = cfg.dtype
-        b = left.shape[0]
+        b, h, w = left.shape[:3]
+        if h % 3 or w % 3:
+            # The stride-3 stem would round up and return a larger map; sizes
+            # that divide by 3 but not by the deeper levels fail in the nets.
+            raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
         # Shared weights across views (reference retrain/LEAStereo.py:31-32):
         # both views go through the feature net as one batch.
         x = torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype)
@@ -131,6 +135,13 @@ class LEAStereo(nn.Module):
         return disp
 
 
+def require_cuda() -> None:
+    """Raise unless a CUDA card is present: the port never moves to the CPU
+    unasked."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: pass device='cpu' to run the model on the CPU")
+
+
 def best_sceneflow_model(
     config: LEAStereoConfig = LEAStereoConfig(), device: str | torch.device | None = None, seed: int = 0
 ) -> LEAStereo:
@@ -139,8 +150,7 @@ def best_sceneflow_model(
     eval mode, on ``device``. ``None`` means the CUDA card; without one this
     raises rather than run on the CPU unasked."""
     if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("CUDA is not available: pass device='cpu' to run the model on the CPU")
+        require_cuda()
         device = "cuda"
     gen = torch.Generator().manual_seed(seed)
     model = LEAStereo(BEST_SCENEFLOW["feature"], BEST_SCENEFLOW["matching"], config, gen)

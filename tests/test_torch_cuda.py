@@ -2,7 +2,8 @@
 
 Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
 first use and held against its plain PyTorch version evaluated in float64 on
-the same inputs, at small ragged shapes and at the KITTI head shape. Every test skips without a CUDA card. This file imports neither JAX
+the same inputs, at small ragged shapes and at the KITTI head shape; the
+predict driver launches its dtype's head once per frame. Every test skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -143,6 +144,46 @@ def test_wrappers_raise_instead_of_falling_back(dev):
             torch.zeros(1, 4, 3, 3, 3, device=dev),
             24,
         )
+
+
+def _kitti_tree(root, names, h=96, w=192):
+    """A KITTI-2015-layout tree (``image_2``, ``image_3``, sparse uint16
+    ``disp_occ_0``) and a list set ``syn`` naming its frames."""
+    from PIL import Image
+
+    rng = np.random.RandomState(0)
+    for sub in ("image_2", "image_3", "disp_occ_0"):
+        (root / "data" / sub).mkdir(parents=True)
+    for name in names:
+        for sub in ("image_2", "image_3"):
+            Image.fromarray(rng.randint(0, 255, (h, w, 3)).astype(np.uint8)).save(root / "data" / sub / name)
+        disp = (rng.rand(h, w) * 40 * 256).astype(np.uint16)
+        disp[rng.rand(h, w) < 0.7] = 0
+        Image.fromarray(disp).save(root / "data" / "disp_occ_0" / name)
+    lists = root / "lists" / "syn"
+    lists.mkdir(parents=True)
+    for split in ("train", "val", "test"):
+        (lists / f"{split}.list").write_text("".join(f"image_2/{n}\n" for n in names))
+
+
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", conv_soft_argmin_sm90), ("float32", conv_soft_argmin_simt)])
+def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
+    """``cli.predict`` on the card: one launch of the dtype's fused head per
+    frame and none of the other heads."""
+    from leastereo_tpu_torch.cli import predict
+
+    names = ["000000_10.png", "000001_10.png"]
+    _kitti_tree(tmp_path, names)
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, soft_argmin_cuda)
+    n = [f.launches for f in counters]
+    argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
+            "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
+            "--maxdisp", "48", "--dtype", dtype, "--output_dir", str(tmp_path / "out")]
+    assert predict.main(argv) == 0
+    assert [f.launches - k for f, k in zip(counters, n)] == [len(names) if f is kernel else 0 for f in counters]
+    for name in names:
+        disp = np.load(tmp_path / "out" / f"image_2_{name}.npy")
+        assert disp.shape == (96, 192) and np.isfinite(disp).all() and 0 <= disp.min() <= disp.max() <= 48
 
 
 def test_model_raises_on_refused_cost(dev):
