@@ -39,6 +39,22 @@ caught, so any failure exits non-zero):
    one launch of its head per frame, none of the others) are checked, and
    frame 0 of the default run is held against phase 4's model called
    directly. Prints each run's per-frame load, ``run_frame`` and save times.
+9. train: the band kernel at the train forward's cost (4, 64, 96, 192),
+   peaky and diffuse, forward and gradient against float64; the sm90 head
+   at each val frame's volume (1, 32, 64, 96, 192) bf16, peaky, wide and
+   diffuse, against float64; one train step
+   (fp32, TF32 off, 96x192, maxdisp 48, batch 2) of the kernel path against
+   the plain path, loss and per-tensor gradients; then
+   ``leastereo_tpu_torch.cli.train.main`` in-process on the KITTI fine-tune
+   recipe (288x576, batch 4, maxdisp 192, bf16, Adam, 31 epochs of one step
+   on the 4 bundled train frames, one val frame each) with the plain head
+   barred from the model: every logged loss finite, step 31's below half of
+   step 1's, one band-kernel launch per train step and one sm90-head launch
+   per val frame (counts zeroed just before, read just after), ``best`` and
+   ``final`` written, ``final`` loading into ``evaluate``, a run resumed
+   from ``best`` starting below the cold run's first loss. Prints the step
+   and val frame times, the peak memory, and from one profiled step the
+   device time by kernel kind and the band kernel's share.
 
 Then the kernel table, the card line and, last, the result line. Exits
 non-zero without printing a result when no CUDA card is present.
@@ -84,6 +100,17 @@ SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
 TOL_CLI_PX = 2e-3  # the evaluate driver's frame 0 against the model called directly
+# Phase 9, training. The KITTI fine-tune recipe (run/kitti_ft_r05/README.md:15-19):
+# 288x576 crops, batch 4, maxdisp 192; 4 train frames make one step an epoch.
+TRAIN_H, TRAIN_W, TRAIN_B, TRAIN_EPOCHS = 288, 576, 4, 31
+# The band kernel's gradient (its plain fp32 backward) against float64, rel L2.
+TOL_BAND_GRAD = 1e-4
+# One train step, kernel path against plain path (fp32, TF32 off): the loss
+# (relative) and the per-tensor relative L2 of the gradients, 10x what the
+# first H100 run measured (loss equal; gradients 1.13e-6 median, 1.03e-5
+# worst: the paths share all but the head's forward).
+TOL_STEP_LOSS = 1e-5
+TOL_STEP_GRAD_MEDIAN, TOL_STEP_GRAD_WORST = 1e-5, 1e-4
 
 REPO = pathlib.Path(__file__).resolve().parent
 KITTI_ROOT = str(REPO / "dataset" / "kitti15_part")  # 324x576 frames
@@ -259,6 +286,241 @@ def cli_phase(model, counters: dict, card: str) -> dict:
             emit(line)
             result[run] = {"head": head, "launches": launches[head], "frames": frames}
     return result
+
+
+def train_phase(counters: dict, card: str) -> dict:
+    """Phase 9: training. The band kernel at the train forward's cost shape
+    (forward and gradient), the sm90 head at the val frame's volume, one
+    train step of the kernel path against the plain path, then
+    ``cli.train.main`` on the KITTI fine-tune recipe. Returns the
+    fine-tune's launches of each head and both heads' checks and times at
+    the fine-tune's shapes."""
+    import leastereo_tpu_torch.models.leastereo as lst
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.cli import evaluate
+    from leastereo_tpu_torch.cli import train as train_cli
+    from leastereo_tpu_torch.data import ListSet, StereoListDataset, make_loader
+    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_reference, conv_soft_argmin_sm90
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
+    from leastereo_tpu_torch.ops.softargmin import soft_argmin
+    from leastereo_tpu_torch.train import make_optimizer, masked_smooth_l1, train_step
+
+    dev = torch.device("cuda")
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, d, h, w, maxdisp = TRAIN_B, 64, TRAIN_H // 3, TRAIN_W // 3, 192
+
+    # 9a. The band kernel at the train forward's cost, forward against the
+    # plain version in float64 and its gradient (the plain fp32 backward of
+    # the autograd wrapper) against the float64 gradient.
+    band = {"card": card, "shape": [b, d, h, w], "tol_px": TOL_KERNEL_PX, "tol_grad_rel_l2": TOL_BAND_GRAD}
+    for kind in ("peaky", "diffuse"):
+        cost = peaky_cost(gen, b, d, h, w, dev) if kind == "peaky" else torch.randn(b, d, h, w, generator=gen, device=dev)
+        cost.requires_grad_(True)
+        g_up = torch.randn(b, 3 * h, 3 * w, generator=gen, device=dev)
+        out = soft_argmin_fused(cost, maxdisp)
+        (g_k,) = torch.autograd.grad(out, cost, g_up)
+        c64 = cost.detach().double().requires_grad_(True)
+        ref = soft_argmin(c64, maxdisp)
+        (g_r,) = torch.autograd.grad(ref, c64, g_up.double())
+        band[f"{kind}_max_abs_err_px"] = (out.detach().double() - ref.detach()).abs().max().item()
+        band[f"{kind}_grad_rel_l2"] = ((g_k.double() - g_r).norm() / g_r.norm()).item()
+        if not (band[f"{kind}_max_abs_err_px"] < TOL_KERNEL_PX and band[f"{kind}_grad_rel_l2"] < TOL_BAND_GRAD):
+            emit({"phase": "train_band_kernel", **band})
+            raise AssertionError(f"band kernel at the train shape, {kind}: {band}")
+        del c64, ref, g_r
+    cost = cost.detach()
+    cost16 = cost.to(torch.bfloat16).requires_grad_(True)
+    band["ms"] = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
+    band["plain_ms"] = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
+    band["fwd_bwd_ms"] = cuda_ms(lambda: soft_argmin_fused(cost16, maxdisp).backward(g_up), iters=5)
+    band["plain_fwd_bwd_ms"] = cuda_ms(lambda: soft_argmin(cost16, maxdisp).backward(g_up), iters=5)
+    exps = b * 9 * h * w * d
+    band["bound_ms"], band["bound_by"] = bound(cost.numel() * 4 + b * 9 * h * w * 4, 0, torch.float32, exps)
+    band["note"] = "fwd_bwd: bf16 cost as the model gives it, the kernel's forward and the plain backward"
+    emit({"phase": "train_band_kernel", **band})
+    del cost, cost16, g_up, out, g_k
+    torch.cuda.empty_cache()
+
+    # 9a'. The sm90 head at every val frame's pre-head volume (eval at
+    # 288x576: (1, 32, 64, 96, 192) bf16) against its plain version in float64.
+    c = 32
+    head = {"card": card, "shape": [1, c, d, h, w], "dtype": "torch.bfloat16", "tol_px": TOL_KERNEL_PX}
+    for kind in ("peaky", "wide", "diffuse"):
+        vol, kern = head_inputs(gen, kind, 1, c, d, h, w, dev)
+        vol = vol.to(torch.bfloat16)
+        ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
+        head[f"{kind}_max_abs_err_px"] = (conv_soft_argmin_sm90(vol, kern, maxdisp).double() - ref).abs().max().item()
+        del ref
+        if not head[f"{kind}_max_abs_err_px"] < TOL_KERNEL_PX:
+            emit({"phase": "train_val_head", **head})
+            raise AssertionError(f"sm90 head at the val frame's volume, {kind}: {head}")
+    head["ms"] = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp))
+    head["plain_ms"] = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
+    head["bound_ms"], head["bound_by"] = bound(vol.numel() * 2 + kern.numel() * 4 + 9 * h * w * 4,
+                                               2 * 27 * c * d * h * w, torch.bfloat16, 9 * h * w * d)
+    emit({"phase": "train_val_head", **head})
+    del vol, kern
+    torch.cuda.empty_cache()
+
+    # 9b. One train step (forward, masked loss, backward), kernel path against
+    # plain path, fp32 with TF32 off, same weights and batch. Both share the
+    # backward but for the head's forward.
+    hs, ws, md, bs = 96, 192, 48, 2
+    rng = np.random.RandomState(6)
+    left = torch.from_numpy(rng.randn(bs, hs, ws, 3).astype(np.float32)).to(dev)
+    right = torch.from_numpy((2.0 * rng.randn(bs, hs, ws, 3)).astype(np.float32)).to(dev)
+    target = rng.uniform(0.5, md - 1, (bs, hs, ws)).astype(np.float32)
+    target[:, ::7, ::5] = 0.0
+    target = torch.from_numpy(target).to(dev)
+    base = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32"), seed=2)
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+    base.train()  # scale last_3 on the train-mode cost (this moves base's BN stats, not state's)
+    with torch.no_grad():
+        vol = base.matching(base.feature(left.permute(0, 3, 1, 2)), base.feature(right.permute(0, 3, 1, 2)), md // 3)
+        state["matching.last_3.conv.weight"].mul_(3.0 / base.matching.last_3(vol).std())
+    del base, vol
+    steps = {}
+    for pallas in (True, False):
+        m = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32", pallas_head=pallas))
+        m.load_state_dict(state)
+        m.train()
+        n0 = soft_argmin_cuda.launches
+        loss = masked_smooth_l1(m(left, right).float(), target, md)
+        loss.backward()
+        steps[pallas] = (loss.item(), {k: p.grad.double() for k, p in m.named_parameters()},
+                         soft_argmin_cuda.launches - n0)
+    (loss_k, grads_k, n_k), (loss_p, grads_p, n_p) = steps[True], steps[False]
+    rels = {k: ((grads_k[k] - g).norm() / (g.norm() + 1e-30)).item() for k, g in grads_p.items()}
+    worst = max(rels, key=rels.get)
+    line = {"phase": "train_step_kernel_vs_plain", "card": card, "shape": [bs, hs, ws], "maxdisp": md,
+            "dtype": "float32", "tf32": False, "loss_kernel": loss_k, "loss_plain": loss_p,
+            "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p), "tol_loss_rel": TOL_STEP_LOSS,
+            "grad_rel_l2_median": float(np.median(list(rels.values()))), "grad_rel_l2_worst": rels[worst],
+            "grad_worst_tensor": worst, "tol_grad_median": TOL_STEP_GRAD_MEDIAN, "tol_grad_worst": TOL_STEP_GRAD_WORST,
+            "band_launches": {"kernel_path": n_k, "plain_path": n_p}}
+    emit(line)
+    if (n_k, n_p) != (1, 0) or not line["loss_rel_diff"] < TOL_STEP_LOSS:
+        raise AssertionError(f"train step, kernel against plain path: {line}")
+    if not (line["grad_rel_l2_median"] < TOL_STEP_GRAD_MEDIAN and rels[worst] < TOL_STEP_GRAD_WORST):
+        raise AssertionError(f"train step gradients, kernel against plain path: {line}")
+    del steps, grads_k, grads_p, m, left, right, target
+    torch.cuda.empty_cache()
+
+    # 9c. The fine-tune through the driver, with the plain head barred from
+    # the model (a cost the band kernel refused would raise in its wrapper).
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, a user's setting
+    lists_dir = str(REPO / "dataloaders" / "lists")
+    recipe = ["--dataset", "kitti15_part", "--data_root", KITTI_ROOT, "--listset", "kitti15_part",
+              "--lists_dir", lists_dir, "--crop_height", str(TRAIN_H), "--crop_width", str(TRAIN_W),
+              "--batch_size", str(TRAIN_B), "--maxdisp", str(maxdisp), "--lr", "1e-3", "--solver", "adam",
+              "--loop_mode", "n_epochs", "--ckpt_period", "10", "--workers", "2", "--seed", "2019",
+              "--device", "cuda"]
+
+    def no_plain_head(*args, **kwargs):
+        raise AssertionError("the model ran the plain soft_argmin head on the card")
+
+    def read_log(run_dir):
+        with open(os.path.join(run_dir, "logs", "metrics.jsonl")) as f:
+            return [json.loads(ln) for ln in f]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        saved_plain, lst.soft_argmin = lst.soft_argmin, no_plain_head
+        t0 = time.perf_counter()
+        try:
+            with stage_times({"train_step": (train_cli, "train_step"), "eval_step": (train_cli, "eval_step")},
+                             {}) as ms, contextlib.redirect_stdout(printed):
+                rc = train_cli.main(recipe + ["--epochs", str(TRAIN_EPOCHS), "--run_root", tmp, "--experiment", "ft"])
+        finally:
+            lst.soft_argmin = saved_plain
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        exp = os.path.join(tmp, "kitti15_part-train", "ft")
+        log = read_log(exp)
+        train_log = [ln for ln in log if "loss" in ln]
+        val_log = [ln for ln in log if "val_err3" in ln]
+        n_steps, n_val = len(ms["train_step"]), len(ms["eval_step"])
+        ckpts = {kind: sorted(os.listdir(os.path.join(exp, "checkpoints", kind)))
+                 for kind in os.listdir(os.path.join(exp, "checkpoints"))}
+        line = {"phase": "train", "card": card, "recipe": recipe + ["--epochs", str(TRAIN_EPOCHS)], "rc": rc,
+                "seconds": run_s, "steps": n_steps, "val_frames": n_val, "launches": launches,
+                "train_step_ms_median_2_to_last": float(np.median(ms["train_step"][1:])),
+                "train_step_ms": ms["train_step"], "val_frame_ms_median": float(np.median(ms["eval_step"])),
+                "peak_mem_gb": peak_gb, "explicit_volume_gb": TRAIN_B * 64 * (maxdisp // 3) * h * w * 2 / 1e9,
+                "logged": [{k: ln[k] for k in ("step", "loss", "epe", "err3")} for ln in train_log],
+                "val_err3": [ln["val_err3"] for ln in val_log], "checkpoints": ckpts}
+        losses = [ln["loss"] for ln in train_log]
+        ok = (rc == 0 and n_steps == TRAIN_EPOCHS and n_val == TRAIN_EPOCHS and len(val_log) == TRAIN_EPOCHS
+              and all(math.isfinite(x) for x in losses) and train_log[-1]["step"] == TRAIN_EPOCHS
+              and losses[-1] < 0.5 * losses[0]
+              and launches == {k: {"band_soft_argmin": n_steps, "fused_head_sm90": n_val}.get(k, 0) for k in counters}
+              and ckpts.get("best") and ckpts.get("final") == [f"{TRAIN_EPOCHS}.pth"])
+        if not ok:
+            emit(line)
+            raise AssertionError(f"fine-tune: {line}")
+
+        # The final checkpoint loads into evaluate; a resumed run from best
+        # starts below the cold run's first loss.
+        final = os.path.join(exp, "checkpoints", "final", f"{TRAIN_EPOCHS}.pth")
+        with contextlib.redirect_stdout(printed):
+            rc_eval = evaluate.main(KITTI_ARGS + ["--split", "val", "--checkpoint", final, "--crop_height", str(TRAIN_H),
+                                                  "--crop_width", str(TRAIN_W), "--output_dir", os.path.join(tmp, "eval")])
+            rc_resume = train_cli.main(recipe + ["--epochs", "1", "--run_root", tmp, "--experiment", "resume",
+                                                 "--resume", os.path.join(exp, "checkpoints", "best")])
+        resumed = read_log(os.path.join(tmp, "kitti15_part-train", "resume"))[0]
+        line.update({"evaluate_final_rc": rc_eval, "resume_from_best_step1_loss": resumed["loss"],
+                     "cold_step1_loss": losses[0]})
+        if rc_eval != 0 or rc_resume != 0 or not resumed["loss"] < losses[0]:
+            emit(line)
+            raise AssertionError(f"fine-tune checkpoints: {line}")
+
+        # One more step of the recipe's shapes, alone: its peak memory, and
+        # under the profiler the device time by kernel and the band kernel's share.
+        ds = StereoListDataset("kitti15_part", ListSet.resolve("kitti15_part", lists_dir).train, root=KITTI_ROOT,
+                               crop_size=(TRAIN_H, TRAIN_W), training=True, seed=2019)
+        batch = next(iter(make_loader(ds, TRAIN_B, device=dev, seed=2019, num_workers=2)(0)))
+        model = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16"), seed=2019)
+        opt = make_optimizer([p for p in model.parameters()], "adam", 1e-3)
+        train_step(model, opt, batch, maxdisp, 1e-3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        train_step(model, opt, batch, maxdisp, 1e-3)
+        step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            train_step(model, opt, batch, maxdisp, 1e-3)
+            torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    band_ms = sum(e.self_device_time_total for e in events if "band_kernel" in e.key) / 1e3
+    groups = {}
+    for e in events:
+        kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
+    line.update({"step_alone_peak_mem_gb": step_peak_gb, "step_alone_start_mem_gb": base_gb,
+                 "profiled_step_device_ms": busy_ms, "band_kernel_device_ms": band_ms,
+                 "band_kernel_share": band_ms / busy_ms,
+                 "profiled_step_device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                 "top_kernels_ms": [[e.key[:100], e.self_device_time_total / 1e3]
+                                    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]]})
+    if not band_ms > 0:
+        raise AssertionError("the profiled train step shows no band kernel time")
+    emit(line)
+    del model, opt, batch
+    torch.cuda.empty_cache()
+    return {"train_steps": n_steps, "val_frames": n_val, "launches": launches,
+            "band_ms": band["ms"], "band_plain_ms": band["plain_ms"], "band_bound_ms": band["bound_ms"],
+            "band_bound_by": band["bound_by"], "band_err": max(band["peaky_max_abs_err_px"], band["diffuse_max_abs_err_px"]),
+            "head_ms": head["ms"], "head_plain_ms": head["plain_ms"], "head_bound_ms": head["bound_ms"],
+            "head_err": max(head[f"{kind}_max_abs_err_px"] for kind in ("peaky", "wide", "diffuse"))}
 
 
 def calibrate_head(model, left, right) -> None:
@@ -579,29 +841,45 @@ def main() -> int:
     cli_of = {r["head"]: {"cli_run": run, "cli_launches": r["launches"], "cli_frames": r["frames"]}
               for run, r in cli.items() if run != "predict"}
 
+    # ---- 9. training: the band kernel at the train shape, a train step's
+    # kernel path against its plain path, the KITTI fine-tune through the driver
+    train = train_phase(counters, card)
+    train_of = {k: {"finetune_launches": n, "finetune_steps": train["train_steps"],
+                    "finetune_val_frames": train["val_frames"]} for k, n in train["launches"].items()}
+    train_of["band_soft_argmin"].update({"train_ms": train["band_ms"], "train_plain_ms": train["band_plain_ms"],
+                                         "train_bound_ms": train["band_bound_ms"],
+                                         "train_max_abs_err": train["band_err"]})
+    train_of["fused_head_sm90"].update({"train_ms": train["head_ms"], "train_plain_ms": train["head_plain_ms"],
+                                        "train_bound_ms": train["head_bound_ms"],
+                                        "train_max_abs_err": train["head_err"]})
+
     # ---- kernel table, card, result
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
     # head), its confidence forward (phase 4, band kernel), the fp32 default
-    # forward (phase 6, first fused head design).
+    # forward (phase 6, first fused head design); finetune_launches: over the
+    # fine-tune's train steps and val frames (phase 9, zeroed just before);
+    # train_*: phase 9's check and times at the fine-tune's shapes (band
+    # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume).
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
          "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
-         **cli_of["fused_head_sm90"]},
+         **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"]},
         {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
          "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
          "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
          "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
-         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None, **cli_of["fused_head"]},
+         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None, **cli_of["fused_head"],
+         **train_of["fused_head"]},
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
          "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",
          "max_abs_err": band_err, "ms": band_ms,
          "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None,
-         **cli_of["band_soft_argmin"]},
+         **cli_of["band_soft_argmin"], **train_of["band_soft_argmin"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,15 +2,15 @@
 
 The flags, names and defaults of ``leastereo_tpu/cli/config.py`` (reference
 ``config_utils/*.py``), except that ``--platform {cpu,tpu}`` becomes
-``--device {cuda,cpu}`` (default ``cuda``). The mesh flags wait for the
-port's parallel runs.
+``--device {cuda,cpu}`` (default ``cuda``). The mesh flags (``--mesh_data``,
+``--mesh_disp``, ``--multihost``) wait for the port's parallel runs.
 """
 
 from __future__ import annotations
 
 import argparse
 
-__all__ = ["add_model_args", "add_data_args", "predict_parser", "evaluate_parser"]
+__all__ = ["add_model_args", "add_data_args", "train_parser", "predict_parser", "evaluate_parser"]
 
 DATASETS = [
     "sceneflow",
@@ -58,6 +58,62 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--crop_height", type=int, required=True)
     p.add_argument("--crop_width", type=int, required=True)
     p.add_argument("--workers", type=int, default=4)
+
+
+def train_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Retrain / fine-tune a decoded LEAStereo model (reference train.py)")
+    add_model_args(p)
+    add_data_args(p)
+    p.add_argument(
+        "--tensorboard", action="store_true",
+        help="also write TensorBoard event files next to metrics.jsonl (reference train.py:100-101)",
+    )
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--test_batch_size", type=int, default=1)
+    p.add_argument("--epochs", type=int, default=2048)
+    p.add_argument("--solver", type=str, default="adam", choices=["adam", "sgd"])
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--milestones", type=int, nargs="*", default=[30, 50, 300])
+    p.add_argument("--lr_gamma", type=float, default=0.5)
+    p.add_argument("--lr_scheduler", type=str, default="multistep",
+                   choices=["multistep", "cos", "poly", "step"],
+                   help="reference utils/lr_scheduler.py modes + torch MultiStepLR")
+    p.add_argument("--lr_step", type=int, default=0, help="epochs per 0.1x decay ('step' mode)")
+    p.add_argument("--warmup_epochs", type=int, default=0, help="linear LR warmup epochs")
+    p.add_argument("--min_lr", type=float, default=None, help="LR floor (before warmup scaling)")
+    p.add_argument("--shift", type=int, default=0)
+    p.add_argument("--left_right", action="store_true")
+    p.add_argument("--seed", type=int, default=2019)
+    p.add_argument("--resume", type=str, default="",
+                   help="checkpoint to resume from: a .pth file, or a checkpoint kind directory "
+                   "(its latest epoch); tensors whose name and shape match are adopted")
+    p.add_argument("--freeze_feature", type=int, default=0)
+    p.add_argument("--freeze_matching", type=int, default=0, help="number of matching cells to freeze")
+    p.add_argument("--edge_loss_w", type=float, default=0.0, help="weight of edge-aware loss")
+    p.add_argument(
+        "--val_other", type=str, action="append", default=None,
+        metavar="NAME:DATASET:LIST:ROOT[:ZSHIFT]",
+        help="extra fixed-list validation sweep per epoch, repeatable "
+        "(reference train.py:243-307 Tagil val12/34/56 sweeps)",
+    )
+    p.add_argument("--experiment", type=str, default="default")
+    p.add_argument("--run_root", type=str, default="run")
+    p.add_argument("--patience", type=int, default=1500)
+    p.add_argument("--es_delta", type=float, default=0.001)
+    p.add_argument("--ckpt_period", type=int, default=20)
+    p.add_argument(
+        "--loop_mode", type=str, default="early_stop", choices=["early_stop", "n_epochs"],
+        help="early_stop: patience/delta loop (reference train.py:367-382, the "
+        "default entry). n_epochs: run exactly --epochs epochs, save best on "
+        "improvement plus periodic checkpoints every --ckpt_period epochs once "
+        "epoch >= --ckpt_min_epoch (reference train.py:393-429 dataset cadence; "
+        "sceneflow there saved every epoch -> use --ckpt_period 1)",
+    )
+    p.add_argument("--ckpt_min_epoch", type=int, default=0,
+                   help="first epoch eligible for periodic checkpoints in n_epochs "
+                   "mode (reference train.py:405 used 3000 for non-sceneflow)")
+    p.add_argument("--max_steps_per_epoch", type=int, default=0, help="truncate epochs (smoke runs)")
+    return p
 
 
 def predict_parser() -> argparse.ArgumentParser:

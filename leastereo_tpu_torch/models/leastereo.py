@@ -108,11 +108,18 @@ class LEAStereo(nn.Module):
             # The stride-3 stem would round up and return a larger map; sizes
             # that divide by 3 but not by the deeper levels fail in the nets.
             raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
-        # Shared weights across views (reference retrain/LEAStereo.py:31-32):
-        # both views go through the feature net as one batch.
-        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype)
-        feats = self.feature(x)
-        vol = self.matching(feats[:b], feats[b:], cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
+        # Shared weights across views (reference retrain/LEAStereo.py:31-32).
+        if self.training:
+            # One call per view, as the reference and the JAX model
+            # (leastereo_tpu/models/leastereo.py:97-99): each BN normalises
+            # with one view's statistics and updates its running stats per view.
+            f_left = self.feature(left.permute(0, 3, 1, 2).to(dtype))
+            f_right = self.feature(right.permute(0, 3, 1, 2).to(dtype))
+        else:
+            # Eval BN reads running stats, so both views run as one batch.
+            feats = self.feature(torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype))
+            f_left, f_right = feats[:b], feats[b:]
+        vol = self.matching(f_left, f_right, cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
 
         last_3 = self.matching.last_3
         kernel = last_3.conv.weight.to(dtype)

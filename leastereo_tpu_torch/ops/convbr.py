@@ -68,9 +68,23 @@ class ConvBR(nn.Module):
         return self.conv.weight * w.view(-1, *([1] * (self.conv.weight.ndim - 1))), b
 
     def post(self, x: torch.Tensor) -> torch.Tensor:
-        """Train-mode BN (statistics in float32) and the ReLU, after the conv."""
+        """Train-mode BN (statistics in float32) and the ReLU, after the conv.
+
+        The batch is normalised with its mean and biased variance, and the
+        running stats move by ``momentum`` (0.1) towards them: the running
+        variance towards the *biased* batch variance, as flax's
+        ``nn.BatchNorm`` in the JAX package does. ``nn.BatchNorm*d``, and
+        with it the original PyTorch reference, moves it towards the
+        unbiased one."""
         if self.bn is not None:
-            x = self.bn(x.float()).to(x.dtype)
+            bn = self.bn
+            xf = x.float()
+            with torch.no_grad():
+                var, mean = torch.var_mean(xf, dim=[0, *range(2, xf.ndim)], correction=0)
+                bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
+                bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+                bn.num_batches_tracked += 1
+            x = F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).to(x.dtype)
         return torch.relu(x) if self.relu else x
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
 first use and held against its plain PyTorch version evaluated in float64 on
 the same inputs, at small ragged shapes and at the KITTI head shape; the
-predict driver launches its dtype's head once per frame. Every test skips without a CUDA card. This file imports neither JAX
+predict driver launches its dtype's head once per frame, the train driver
+the band kernel once per step. Every test skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -78,9 +79,11 @@ def _head_case(dev, shape, dtype, kern_dtype=torch.float32):
 
 # (b, d, h, w, c). The first three run with fp32 and bf16 volumes; the rest
 # are bf16 shapes the sm90 gate admits, ragged against its 8 x 16 tile
-# (h, w not multiples of it), C in {16, 32}, D in {8, 16, 64}.
+# (h, w not multiples of it), C in {16, 32}, D in {8, 16, 64}, then the
+# volumes of a fine-tune's val frame (288x576) and of a KITTI frame.
 HEAD_SHAPES = [(1, 8, 16, 24, 32), (2, 16, 20, 40, 16), (1, 64, 32, 64, 32)]
-SM90_SHAPES = [(1, 8, 5, 8, 16), (1, 16, 13, 56, 16), (2, 8, 19, 72, 32), (1, 64, 37, 104, 32), (1, 64, 128, 416, 32)]
+SM90_SHAPES = [(1, 8, 5, 8, 16), (1, 16, 13, 56, 16), (2, 8, 19, 72, 32), (1, 64, 37, 104, 32), (1, 64, 96, 192, 32),
+               (1, 64, 128, 416, 32)]
 
 
 @pytest.mark.parametrize(
@@ -184,6 +187,31 @@ def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
     for name in names:
         disp = np.load(tmp_path / "out" / f"image_2_{name}.npy")
         assert disp.shape == (96, 192) and np.isfinite(disp).all() and 0 <= disp.min() <= disp.max() <= 48
+
+
+def test_train_driver_launches_band_kernel_per_step(dev, tmp_path):
+    """``cli.train`` on the card, bf16: two epochs of one step each on a
+    synthetic 96x192 tree; the band kernel launches once per train step, the
+    sm90 head once per val frame, the first fused design never."""
+    import json
+
+    from leastereo_tpu_torch.cli import train
+
+    names = ["000000_10.png", "000001_10.png"]
+    _kitti_tree(tmp_path, names)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    n = [f.launches for f in counters]
+    argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
+            "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
+            "--maxdisp", "48", "--batch_size", "2", "--epochs", "2", "--workers", "0",
+            "--run_root", str(tmp_path / "run"), "--experiment", "card"]
+    assert train.main(argv) == 0
+    steps, val_frames = 2, 2 * len(names)
+    assert [f.launches - k for f, k in zip(counters, n)] == [steps, val_frames, 0]
+    exp = tmp_path / "run" / "kitti15_part-train" / "card"
+    lines = [json.loads(line) for line in (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
+    assert np.isfinite([line["loss"] for line in lines if "loss" in line]).all()
+    assert (exp / "checkpoints" / "final" / "2.pth").is_file()
 
 
 def test_model_raises_on_refused_cost(dev):

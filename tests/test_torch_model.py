@@ -161,6 +161,8 @@ def test_port_imports_no_jax():
     code = (
         "import sys, leastereo_tpu_torch, leastereo_tpu_torch.utils.weights;"
         "import leastereo_tpu_torch.ops.fused_stem, leastereo_tpu_torch.ops._build;"
+        "import leastereo_tpu_torch.train, leastereo_tpu_torch.data.pipeline, leastereo_tpu_torch.utils.experiment;"
+        "import leastereo_tpu_torch.utils.checkpoint;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'leastereo_tpu')];"
         "print(bad); sys.exit(1 if bad else 0)"
     )
