@@ -18,12 +18,13 @@ caught, so any failure exits non-zero):
    result by ~3e-3 px); then their times on one bf16 input beside the
    unfused yardstick (cuDNN ``last_3`` conv + band kernel), the band
    kernel's grid and occupancy, and the first design's time at shapes that
-   show what limits it.
+   show what limits it, and on a KITTI fp32 volume (the case it serves).
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
    eval, random seeded weights: the default forward (sm90 fused head, once
    per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
    kernel). Launch counts are zeroed just before and read just after.
-5. layers and profile: per-layer times and the device's busy share.
+5. layers and profile: per-layer times and the device's busy share; one
+   fp32 KITTI frame's device time and the first fused design's share of it.
 6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48
    (the first fused head design and the band kernel; counts zeroed just
    before and read just after).
@@ -39,7 +40,16 @@ caught, so any failure exits non-zero):
    one launch of its head per frame, none of the others) are checked, and
    frame 0 of the default run is held against phase 4's model called
    directly. Prints each run's per-frame load, ``run_frame`` and save times.
-9. train: the band kernel at the train forward's cost (4, 64, 96, 192),
+9. export: ``python -m leastereo_tpu_torch.cli.export`` of phase 4's weights
+   at 384x1248 (bf16) and of phase 6's at 96x192 (fp32, maxdisp 48), each
+   passing its round-trip check; each ``.pt2`` loaded here and run with the
+   counts zeroed just before (10 KITTI frames: one sm90 head each and nothing
+   else; 3 fp32 frames: one first-design head each), within 1e-3 px of the
+   eager model, its frame times beside the eager model's; a
+   ``utils.tracing.trace`` of one loaded KITTI frame must name the sm90
+   kernel; ``utils.profiling.model_flops`` of a KITTI bf16 frame, equal with
+   the head unfused, and the phase's peak memory.
+10. train: the band kernel at the train forward's cost (4, 64, 96, 192),
    peaky and diffuse, forward and gradient against float64; the sm90 head
    at each val frame's volume (1, 32, 64, 96, 192) bf16, peaky, wide and
    diffuse, against float64; one train step
@@ -100,7 +110,9 @@ SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
 TOL_CLI_PX = 2e-3  # the evaluate driver's frame 0 against the model called directly
-# Phase 9, training. The KITTI fine-tune recipe (run/kitti_ft_r05/README.md:15-19):
+TOL_EXPORT_PX = 1e-3  # a loaded .pt2 program against the eager model (the driver's own round-trip bound)
+EXPORT_FRAMES, EXPORT_FP32_FRAMES = 10, 3  # frames of the loaded KITTI bf16 and fp32 programs
+# Phase 10, training. The KITTI fine-tune recipe (run/kitti_ft_r05/README.md:15-19):
 # 288x576 crops, batch 4, maxdisp 192; 4 train frames make one step an epoch.
 TRAIN_H, TRAIN_W, TRAIN_B, TRAIN_EPOCHS = 288, 576, 4, 31
 # The band kernel's gradient (its plain fp32 backward) against float64, rel L2.
@@ -143,6 +155,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Mean host wall time (us) to enqueue ``fn``, after one synchronised call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / iters
 
 
 def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, str]:
@@ -289,7 +313,7 @@ def cli_phase(model, counters: dict, card: str) -> dict:
 
 
 def train_phase(counters: dict, card: str) -> dict:
-    """Phase 9: training. The band kernel at the train forward's cost shape
+    """Phase 10: training. The band kernel at the train forward's cost shape
     (forward and gradient), the sm90 head at the val frame's volume, one
     train step of the kernel path against the plain path, then
     ``cli.train.main`` on the KITTI fine-tune recipe. Returns the
@@ -310,7 +334,7 @@ def train_phase(counters: dict, card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(6)
     b, d, h, w, maxdisp = TRAIN_B, 64, TRAIN_H // 3, TRAIN_W // 3, 192
 
-    # 9a. The band kernel at the train forward's cost, forward against the
+    # 10a. The band kernel at the train forward's cost, forward against the
     # plain version in float64 and its gradient (the plain fp32 backward of
     # the autograd wrapper) against the float64 gradient.
     band = {"card": card, "shape": [b, d, h, w], "tol_px": TOL_KERNEL_PX, "tol_grad_rel_l2": TOL_BAND_GRAD}
@@ -342,7 +366,7 @@ def train_phase(counters: dict, card: str) -> dict:
     del cost, cost16, g_up, out, g_k
     torch.cuda.empty_cache()
 
-    # 9a'. The sm90 head at every val frame's pre-head volume (eval at
+    # 10a'. The sm90 head at every val frame's pre-head volume (eval at
     # 288x576: (1, 32, 64, 96, 192) bf16) against its plain version in float64.
     c = 32
     head = {"card": card, "shape": [1, c, d, h, w], "dtype": "torch.bfloat16", "tol_px": TOL_KERNEL_PX}
@@ -363,7 +387,7 @@ def train_phase(counters: dict, card: str) -> dict:
     del vol, kern
     torch.cuda.empty_cache()
 
-    # 9b. One train step (forward, masked loss, backward), kernel path against
+    # 10b. One train step (forward, masked loss, backward), kernel path against
     # plain path, fp32 with TF32 off, same weights and batch. Both share the
     # backward but for the head's forward.
     hs, ws, md, bs = 96, 192, 48, 2
@@ -407,7 +431,7 @@ def train_phase(counters: dict, card: str) -> dict:
     del steps, grads_k, grads_p, m, left, right, target
     torch.cuda.empty_cache()
 
-    # 9c. The fine-tune through the driver, with the plain head barred from
+    # 10c. The fine-tune through the driver, with the plain head barred from
     # the model (a cost the band kernel refused would raise in its wrapper).
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, a user's setting
     lists_dir = str(REPO / "dataloaders" / "lists")
@@ -523,6 +547,124 @@ def train_phase(counters: dict, card: str) -> dict:
             "head_err": max(head[f"{kind}_max_abs_err_px"] for kind in ("peaky", "wide", "diffuse"))}
 
 
+def frame_ms(fn, inputs, warmup: int = 3) -> list[float]:
+    """Device-timeline ms of each call ``fn(l, r)`` over ``inputs`` (CUDA
+    events around each frame), after ``warmup`` untimed frames."""
+    for l, r in inputs[:warmup]:
+        fn(l, r)
+    times = []
+    for l, r in inputs:
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(l, r)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return times
+
+
+def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per_frame: float) -> dict:
+    """Phase 9: ``cli.export`` of phase 4's KITTI bf16 model and of phase 6's
+    fp32 model, each loaded back here and run with the counts zeroed just
+    before; the loaded programs against the eager models; a trace of one
+    loaded frame; the model's FLOPs. Returns each kernel's launches in the
+    loaded programs' frames."""
+    from torch.autograd import DeviceType
+
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.utils.profiling import model_flops, peak_hbm_gb
+    from leastereo_tpu_torch.utils.tracing import trace
+
+    dev = next(model.parameters()).device
+    fp32_model = best_sceneflow_model(LEAStereoConfig(maxdisp=48, compute_dtype="float32"))
+    fp32_model.load_state_dict(fp32_state)
+    torch.cuda.reset_peak_memory_stats()
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as in the export driver's process
+    rng = np.random.RandomState(9)
+    # (run, eager model, driver flags, (H, W), the head each frame must launch, frames)
+    runs = (("kitti_bf16", model, ["--height", str(CLI_H), "--width", str(CLI_W)], (CLI_H, CLI_W),
+             "fused_head_sm90", EXPORT_FRAMES),
+            ("fp32_96x192", fp32_model, ["--dtype", "float32", "--height", "96", "--width", "192", "--maxdisp", "48"],
+             (96, 192), "fused_head", EXPORT_FP32_FRAMES))
+    export_launches = {k: 0 for k in counters}
+    result = {"phase": "export", "card": card, "tol_px": TOL_EXPORT_PX}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, eager, flags, (H, W), head, frames in runs:
+            ckpt, out = os.path.join(tmp, f"{run}.pth"), os.path.join(tmp, f"{run}.pt2")
+            torch.save(eager.state_dict(), ckpt)
+            argv = [sys.executable, "-m", "leastereo_tpu_torch.cli.export", *flags, "--checkpoint", ckpt, "--out", out]
+            t0 = time.perf_counter()
+            proc = subprocess.run(argv, capture_output=True, text=True, cwd=REPO, timeout=600)
+            driver_s = time.perf_counter() - t0
+            if proc.returncode != 0 or "round-trip check passed" not in proc.stdout:
+                raise AssertionError(f"export {run}: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+            t0 = time.perf_counter()
+            prog = torch.export.load(out).module()
+            load_s = time.perf_counter() - t0
+            inputs = [tuple(torch.from_numpy(rng.randn(1, H, W, 3).astype(np.float32)).to(dev) for _ in range(2))
+                      for _ in range(frames)]
+            for fn in counters.values():
+                fn.launches = 0
+            with torch.inference_mode():
+                got = [prog(l, r) for l, r in inputs]
+                torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in counters.items()}
+            for k, n in launches.items():
+                export_launches[k] += n
+            with torch.inference_mode():
+                diff = max((g.float() - eager(l, r).float()).abs().max().item() for g, (l, r) in zip(got, inputs))
+                prog_ms = frame_ms(prog, inputs)
+                eager_ms = frame_ms(eager, inputs)
+            line = {"driver_argv": flags, "driver_seconds": driver_s, "driver_stdout_last": proc.stdout.strip().splitlines()[-1],
+                    "pt2_bytes": os.path.getsize(out), "load_seconds": load_s, "frames": frames, "launches": launches,
+                    "max_abs_diff_vs_eager_px": diff, "loaded_frame_ms_median": float(np.median(prog_ms)),
+                    "eager_frame_ms_median": float(np.median(eager_ms)), "loaded_frame_ms": prog_ms, "eager_frame_ms": eager_ms}
+            result[run] = line
+            if launches != {k: (frames if k == head else 0) for k in counters} or not diff <= TOL_EXPORT_PX:
+                emit(result)
+                raise AssertionError(f"loaded {run} program: launches {launches} (expected {frames} of {head} only), "
+                                     f"{diff} px from the eager model")
+            if run == "kitti_bf16":
+                # The device's own record that the loaded program runs the
+                # hand kernel; one eager frame traced the same way beside it
+                # (device ms and host aten calls per frame).
+                for label, fn in (("loaded", prog), ("eager", eager)):
+                    with torch.inference_mode(), trace(os.path.join(tmp, f"trace_{label}")) as prof:
+                        fn(*inputs[0])
+                    events = prof.key_averages()
+                    line[f"{label}_trace_device_ms"] = sum(
+                        e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+                    line[f"{label}_trace_aten_calls"] = sum(
+                        e.count for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+                    if label == "loaded":
+                        sm90_events = [e for e in events if "head_sm90_kernel" in e.key]
+                trace_text = pathlib.Path(tmp, "trace_loaded", "trace.json").read_text()
+                line["trace_names_sm90_kernel"] = "head_sm90_kernel" in trace_text
+                line["trace_sm90_device_ms"] = sum(e.self_device_time_total for e in sm90_events) / 1e3
+                if not (line["trace_names_sm90_kernel"] and line["trace_sm90_device_ms"] > 0):
+                    emit(result)
+                    raise AssertionError("the trace of a loaded KITTI frame does not show the sm90 kernel")
+            del prog, got, inputs
+        # FLOPs of one KITTI bf16 frame (torch's counter: convolutions and the
+        # fused head's formula), equal with the head unfused.
+        l, r = (torch.from_numpy(rng.randn(1, CLI_H, CLI_W, 3).astype(np.float32)).to(dev) for _ in range(2))
+        plain = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="bfloat16", pallas_head=False))
+        plain.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            flops, flops_plain = model_flops(model, l, r), model_flops(plain, l, r)
+        del plain
+    result.update({"kitti_bf16_frame_flops": flops, "kitti_bf16_frame_flops_unfused_head": flops_plain,
+                   "tflop_s_at_main_path_frame": flops / main_ms_per_frame / 1e9, "main_path_ms_per_frame": main_ms_per_frame,
+                   "peak_hbm_gb": peak_hbm_gb(dev), "export_launches": export_launches,
+                   "note": "flops count convolutions only (torch.utils.flop_counter); frame ms: CUDA events per frame"})
+    emit(result)
+    if flops != flops_plain or not flops > 0:
+        raise AssertionError(f"FLOPs differ with the head fused ({flops}) and not ({flops_plain})")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    return export_launches
+
+
 def calibrate_head(model, left, right) -> None:
     """Scale the matching ``last_3`` kernel so the cost spans a few units.
     Random weights give a cost of huge magnitude, where softmin degenerates
@@ -545,6 +687,7 @@ def main() -> int:
     from leastereo_tpu_torch.ops import _build
     from leastereo_tpu_torch.ops.fused_head import (
         conv_soft_argmin_cuda,
+        conv_soft_argmin_fused,
         conv_soft_argmin_reference,
         conv_soft_argmin_simt,
         conv_soft_argmin_sm90,
@@ -638,18 +781,26 @@ def main() -> int:
     sm90_bf16w_ms = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern16, maxdisp))
     sm90_ms, head_ms, unfused_ms = min(sm90_ms), min(head_ms), min(unfused_ms)
     head_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
+    # The first design on the case it serves: a KITTI fp32 volume (checked
+    # against float64 above, as "fused_head" torch.float32), best of two turns.
+    head_fp32_ms = min(cuda_ms(lambda: conv_soft_argmin_simt(vol32, kern, maxdisp)) for _ in range(2))
+    head_fp32_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol32, kern, maxdisp), iters=5)
     band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
     band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
     out_bytes = b * 9 * h * w * 4
     exps = b * 9 * h * w * d  # one per low-res plane and output phase
     head_flops = 2 * 27 * c * b * d * h * w
     head_bound = bound(vol.numel() * 2 + kern.numel() * 4 + out_bytes, head_flops, torch.bfloat16, exps)
+    head_fp32_bound = bound(vol32.numel() * 4 + kern.numel() * 4 + out_bytes, head_flops, torch.float32, exps)
     band_bound = bound(cost.numel() * 4 + out_bytes, 0, torch.float32, exps)
     emit({"phase": "kernel_times", "card": card, "fused_head_sm90_ms": sm90_ms,
           "fused_head_sm90_bf16_weights_ms": sm90_bf16w_ms, "fused_head_pr1_ms": head_ms,
           "unfused_ms": unfused_ms, "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
           "band_ms": band_ms, "band_plain_ms": band_plain_ms, "band_bound_ms": band_bound[0],
           "band_bound_by": band_bound[1], "exponentials": exps,
+          "fused_head_first_design_fp32_volume_ms": head_fp32_ms, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
+          "fused_head_fp32_volume_bound_ms": head_fp32_bound[0], "fused_head_fp32_volume_bound_by": head_fp32_bound[1],
+          "fp32_volume_mb": vol32.numel() * 4 / 1e6, "peak_bytes_s": PEAK_BYTES_S,
           "note": "ms: best of two turns (sm90, first design, unfused, first design, sm90, unfused); "
                   "fused heads take the fp32 kernel, the unfused cuDNN conv its bf16 rounding"})
 
@@ -757,6 +908,10 @@ def main() -> int:
             "fused_head_pr1_ms": cuda_ms(lambda: conv_soft_argmin_simt(pre, k3, maxdisp), iters=5),
             "last_3_conv_plus_band_ms": cuda_ms(
                 lambda: soft_argmin_cuda(model.matching.last_3(pre)[:, 0].float(), maxdisp), iters=5),
+            # Host time to enqueue one head through the custom op and through
+            # its wrapper directly: the op's dispatch cost per frame.
+            "fused_head_op_host_us": host_us(lambda: conv_soft_argmin_fused(pre, k3, maxdisp)),
+            "fused_head_direct_host_us": host_us(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp)),
         }
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
@@ -782,6 +937,37 @@ def main() -> int:
           "top_kernels_ms_per_frame": [[e.key[:100], e.self_device_time_total / 1e3 / 3]
                                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]})
     del model_conf, feats, pre, x  # phase 8 reuses the model
+    torch.cuda.empty_cache()
+
+    # One fp32 KITTI frame (the first fused design's case) under the profiler,
+    # with cuDNN's TF32 on as PyTorch's default gives a user: its device time
+    # by kind and the first design's share of it.
+    model32 = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="float32"))
+    model32.load_state_dict(model.state_dict())
+    torch.backends.cudnn.allow_tf32 = True
+    conv_soft_argmin_simt.launches = 0
+    with torch.inference_mode():
+        model32(left, right)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof32:
+            for _ in range(3):
+                model32(left, right)
+            torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    events32 = [e for e in prof32.key_averages() if e.device_type == DeviceType.CUDA]
+    fp32_frame_ms = sum(e.self_device_time_total for e in events32) / 1e3 / 3
+    fp32_head_frame_ms = sum(e.self_device_time_total for e in events32 if "head_kernel" in e.key) / 1e3 / 3
+    groups32 = {}
+    for e in events32:
+        kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
+        groups32[kind] = groups32.get(kind, 0.0) + e.self_device_time_total / 1e3 / 3
+    emit({"phase": "fp32_frame", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "float32",
+          "cudnn_tf32": True, "device_ms_per_frame": fp32_frame_ms, "first_design_ms_per_frame": fp32_head_frame_ms,
+          "first_design_share": fp32_head_frame_ms / fp32_frame_ms, "first_design_launches": conv_soft_argmin_simt.launches,
+          "device_ms_per_frame_by_kind": dict(sorted(groups32.items(), key=lambda kv: -kv[1]))})
+    if conv_soft_argmin_simt.launches != 4 or not fp32_head_frame_ms > 0:
+        raise AssertionError(f"fp32 KITTI frame: {conv_soft_argmin_simt.launches} launches of the first design in 4 frames")
+    del model32
     torch.cuda.empty_cache()
 
     # ---- 6. whole model, kernel path vs plain path, fp32, reduced size
@@ -841,7 +1027,10 @@ def main() -> int:
     cli_of = {r["head"]: {"cli_run": run, "cli_launches": r["launches"], "cli_frames": r["frames"]}
               for run, r in cli.items() if run != "predict"}
 
-    # ---- 9. training: the band kernel at the train shape, a train step's
+    # ---- 9. export: the .pt2 driver, the loaded programs' launches and times
+    export_launches = export_phase(model, state, counters, card, 1e3 * elapsed / frames)
+
+    # ---- 10. training: the band kernel at the train shape, a train step's
     # kernel path against its plain path, the KITTI fine-tune through the driver
     train = train_phase(counters, card)
     train_of = {k: {"finetune_launches": n, "finetune_steps": train["train_steps"],
@@ -858,28 +1047,36 @@ def main() -> int:
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
     # head), its confidence forward (phase 4, band kernel), the fp32 default
     # forward (phase 6, first fused head design); finetune_launches: over the
-    # fine-tune's train steps and val frames (phase 9, zeroed just before);
-    # train_*: phase 9's check and times at the fine-tune's shapes (band
-    # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume).
+    # fine-tune's train steps and val frames (phase 10, zeroed just before);
+    # train_*: phase 10's check and times at the fine-tune's shapes (band
+    # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume);
+    # export_launches: over the loaded .pt2 programs' frames (phase 9, zeroed
+    # just before each); fp32_*: the first design on a KITTI fp32 volume
+    # (phase 3) and in an fp32 KITTI frame (phase 5).
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
          "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
-         **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"]},
+         **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"]},
         {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
          "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
          "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
          "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
          "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None, **cli_of["fused_head"],
-         **train_of["fused_head"]},
+         **train_of["fused_head"], "fp32_volume_ms": head_fp32_ms, "fp32_volume_plain_ms": head_fp32_plain_ms,
+         "fp32_volume_bound_ms": head_fp32_bound[0], "fp32_volume_bound_by": head_fp32_bound[1],
+         "fp32_kitti_frame_device_ms": fp32_frame_ms, "fp32_kitti_frame_kernel_ms": fp32_head_frame_ms,
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head"]},
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
          "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",
          "max_abs_err": band_err, "ms": band_ms,
          "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None,
-         **cli_of["band_soft_argmin"], **train_of["band_soft_argmin"]},
+         **cli_of["band_soft_argmin"], **train_of["band_soft_argmin"],
+         "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

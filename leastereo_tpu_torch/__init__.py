@@ -8,9 +8,13 @@ returns ``(B, H, W)``); inside, tensors are NCHW / NCDHW so convolutions go to
 cuDNN. The two Pallas TPU kernels are hand-written CUDA kernels in ``csrc/``
 (the fused head in ``fused_head_sm90.cu`` for bf16 volumes and in
 ``soft_argmin_heads.cu`` for the rest, the band kernel there too), built with
-``nvcc`` at first use (``ops/_build.py``).
+``nvcc`` at first use (``ops/_build.py``). Importing the package registers
+them as the custom ops ``torch.ops.leastereo.conv_soft_argmin`` and
+``torch.ops.leastereo.band_soft_argmin``, so import it before
+``torch.export.load`` of a program it exported (``cli/export.py``).
 """
 
 from .models import LEAStereo, LEAStereoConfig, best_sceneflow_model
+from .ops import fused_head, fused_softargmin  # noqa: F401  (register torch.ops.leastereo.*)
 
 __all__ = ["LEAStereo", "LEAStereoConfig", "best_sceneflow_model"]

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import argparse
 
-__all__ = ["add_model_args", "add_data_args", "train_parser", "predict_parser", "evaluate_parser"]
+__all__ = ["add_model_args", "add_data_args", "train_parser", "predict_parser", "evaluate_parser", "export_parser"]
 
 DATASETS = [
     "sceneflow",
@@ -152,4 +152,17 @@ def evaluate_parser() -> argparse.ArgumentParser:
     p.add_argument("--z_shift", type=float, default=0.0)
     p.add_argument("--round_disp", action="store_true", help="round predictions (reference evaluation.py:169)")
     p.add_argument("--thresholds", type=float, nargs="*", default=[1.0, 2.0, 3.0])
+    return p
+
+
+def export_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Export the eval model as a torch.export program (.pt2)")
+    add_model_args(p)
+    p.add_argument("--checkpoint", type=str, default="",
+                   help="torch state_dict file (.pth; a reference file loads as is); empty: random init")
+    p.add_argument("--height", type=int, default=576)
+    p.add_argument("--width", type=int, default=960)
+    p.add_argument("--out", type=str, required=True)
+    p.add_argument("--format", type=str, default="pt2", choices=["pt2"],
+                   help="torch.export program; StableHLO and SavedModel have no torch analog")
     return p

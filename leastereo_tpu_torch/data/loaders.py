@@ -5,8 +5,8 @@ standardized stack described in :mod:`.transforms`. Loader semantics mirror
 the reference dataset readers (``dataloaders/datasets/*.py``) including their
 occlusion sentinels and coordinate conventions; see each docstring.
 
-A copy of ``leastereo_tpu/data/loaders.py`` (numpy + PIL), held to it by
-``tests/test_torch_data.py``.
+A copy of ``leastereo_tpu/data/loaders.py`` (numpy + PIL, and the native
+PNG/PFM reader of ``data/native.py``), held to it by ``tests/test_torch_data.py``.
 """
 
 from __future__ import annotations
@@ -47,9 +47,13 @@ def _finish(stack: np.ndarray, disp_left, disp_right) -> np.ndarray:
 
 
 def _load_png_pfm_pair(left_png, right_png, disp_l_pfm, disp_r_pfm) -> np.ndarray:
-    """PNG pair + PFM disparities -> 8-channel stack, decoded with PIL and
-    :func:`read_pfm`. The JAX package also has a native C++ decoder for this
-    pair (``native/stereo_io.cpp``); the port has no binding of it yet."""
+    """PNG pair + PFM disparities -> 8-channel stack. Uses the native C++
+    decoder (data/native.py) when it builds; PIL and :func:`read_pfm` where
+    ``g++`` or ``png.h`` is absent."""
+    from .native import load_stereo_sample_native, native_available
+
+    if native_available():
+        return load_stereo_sample_native(left_png, right_png, disp_l_pfm, disp_r_pfm)
     left = _open_image(left_png)
     right = _open_image(right_png)
     return _finish(standardize_stack(left, right), read_pfm(disp_l_pfm), read_pfm(disp_r_pfm))

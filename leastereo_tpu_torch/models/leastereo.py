@@ -13,6 +13,12 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
   ``pallas_head=False`` selects the plain ``soft_argmin`` instead of either
   kernel.
 
+Both kernels are reached through the custom ops ``torch.ops.leastereo.*``
+(``conv_soft_argmin_fused``, ``soft_argmin_fused``), so ``torch.export``
+traces the model with them in its graph. The routing above reads only
+shapes, dtypes and the config, and so traces; the op itself picks the sm90
+kernel or the first design from the volume it is given.
+
 A refused fused head is logged once per reason and falls to the band kernel;
 a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 569``)
 raises rather than run the plain version on the card. On a CPU tensor each

@@ -19,13 +19,17 @@ never reaches device memory.
   design: the conv in fp32 on CUDA cores, one input channel staged at a time.
   It serves fp32 volumes and the bf16 shapes the sm90 gate refuses.
 
-:func:`conv_soft_argmin_cuda` routes between them before launch.
+:func:`conv_soft_argmin_cuda` routes between them before launch. The model
+reaches it through the custom op ``torch.ops.leastereo.conv_soft_argmin``
+(:func:`conv_soft_argmin`), registered when the package is imported, with a
+fake implementation for tracing and the plain version's backward.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .softargmin import soft_argmin
@@ -38,6 +42,7 @@ __all__ = [
     "conv_soft_argmin_simt",
     "conv_soft_argmin_sm90",
     "conv_soft_argmin_cuda",
+    "conv_soft_argmin",
     "conv_soft_argmin_fused",
 ]
 
@@ -172,7 +177,8 @@ def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int)
     A CUDA volume the sm90 gate admits (bf16, contiguous, 16-byte aligned)
     runs :func:`conv_soft_argmin_sm90`; any other CUDA volume runs
     :func:`conv_soft_argmin_simt`, which raises on what it refuses. A CPU
-    volume takes :func:`conv_soft_argmin_reference`.
+    volume takes :func:`conv_soft_argmin_reference`. The route reads the
+    volume's address, so it is taken here, on real tensors, inside the op.
     """
     _check_args(vol, kernel)
     if vol.device.type == "cpu":
@@ -184,27 +190,59 @@ def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int)
     return conv_soft_argmin_simt(vol, kernel, maxdisp)
 
 
-class _ConvSoftArgminFn(torch.autograd.Function):
-    """Kernel forward; backward re-derived through the plain version, as the
-    JAX ``conv_soft_argmin_fused`` custom_vjp does."""
+@torch.library.custom_op("leastereo::conv_soft_argmin", mutates_args=(), device_types="cuda")
+def conv_soft_argmin(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """``torch.ops.leastereo.conv_soft_argmin``: the fused head
+    (:func:`conv_soft_argmin_cuda`) on a CUDA volume; on the CPU the plain
+    :func:`conv_soft_argmin_reference`. Graph tools (``torch.export``, the
+    FLOP counter) see the op, not the ctypes launch inside it."""
+    return conv_soft_argmin_cuda(vol, kernel, maxdisp)
 
-    @staticmethod
-    def forward(ctx, vol, kernel, maxdisp):
-        ctx.save_for_backward(vol, kernel)
-        ctx.maxdisp = maxdisp
-        return conv_soft_argmin_cuda(vol, kernel, maxdisp)
 
-    @staticmethod
-    def backward(ctx, grad):
-        vol, kernel = ctx.saved_tensors
-        with torch.enable_grad():
-            v = vol.detach().requires_grad_(True)
-            k = kernel.detach().requires_grad_(True)
-            out = conv_soft_argmin_reference(v, k, ctx.maxdisp)
-            gv, gk = torch.autograd.grad(out, (v, k), grad)
-        return gv, gk, None
+@conv_soft_argmin.register_kernel("cpu")
+def _conv_soft_argmin_cpu(vol, kernel, maxdisp):
+    _check_args(vol, kernel)
+    return conv_soft_argmin_reference(vol, kernel, maxdisp)
+
+
+@conv_soft_argmin.register_fake
+def _conv_soft_argmin_fake(vol, kernel, maxdisp):
+    _check_args(vol, kernel)
+    b, _, _, h, w = vol.shape
+    return vol.new_empty((b, 3 * h, 3 * w), dtype=torch.float32)
+
+
+def _head_setup_context(ctx, inputs, output):
+    vol, kernel, ctx.maxdisp = inputs
+    ctx.save_for_backward(vol, kernel)
+
+
+def _head_backward(ctx, grad):
+    """The plain version's gradients, as the JAX ``conv_soft_argmin_fused``
+    custom_vjp re-derives them."""
+    vol, kernel = ctx.saved_tensors
+    with torch.enable_grad():
+        v = vol.detach().requires_grad_(True)
+        k = kernel.detach().requires_grad_(True)
+        out = conv_soft_argmin_reference(v, k, ctx.maxdisp)
+        gv, gk = torch.autograd.grad(out, (v, k), grad)
+    return gv, gk, None
+
+
+conv_soft_argmin.register_autograd(_head_backward, setup_context=_head_setup_context)
+
+
+@register_flop_formula(torch.ops.leastereo.conv_soft_argmin)
+def _head_flops(vol_shape, kernel_shape, *args, **kwargs) -> int:
+    """``2 * 27 * C * B * D * h * w``: what ``aten.convolution`` counts for
+    the ``last_3`` conv the op contains (the softmin stage, elementwise,
+    counts 0, as the plain ``soft_argmin`` does), so a model counts the same
+    FLOPs with the head fused or not."""
+    b, c, d, h, w = vol_shape
+    return 2 * 27 * c * b * d * h * w
 
 
 def conv_soft_argmin_fused(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
-    """Drop-in fused head: kernel forward, plain-version backward."""
-    return _ConvSoftArgminFn.apply(vol, kernel, maxdisp)
+    """Drop-in fused head: ``torch.ops.leastereo.conv_soft_argmin``, kernel
+    forward, plain-version backward."""
+    return conv_soft_argmin(vol, kernel, maxdisp)

@@ -20,11 +20,12 @@ memory admits D <= 569.
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 from .softargmin import soft_argmin
 
-__all__ = ["band_gate_reason", "soft_argmin_cuda", "soft_argmin_fused"]
+__all__ = ["band_gate_reason", "band_soft_argmin", "soft_argmin_cuda", "soft_argmin_fused"]
 
 
 def band_gate_reason(d: int, maxdisp: int) -> str | None:
@@ -36,6 +37,11 @@ def band_gate_reason(d: int, maxdisp: int) -> str | None:
     return None
 
 
+def _check_rank(cost: torch.Tensor) -> None:
+    if cost.ndim != 4:
+        raise ValueError(f"expected a (B, D, h, w) cost, got shape {tuple(cost.shape)}")
+
+
 def soft_argmin_cuda(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
     """``(B, D, h, w)`` cost -> ``(B, 3h, 3w)`` fp32 disparity.
 
@@ -43,8 +49,7 @@ def soft_argmin_cuda(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
     tensor takes the plain :func:`soft_argmin`. ``soft_argmin_cuda.launches``
     counts the kernel launches.
     """
-    if cost.ndim != 4:
-        raise ValueError(f"expected a (B, D, h, w) cost, got shape {tuple(cost.shape)}")
+    _check_rank(cost)
     if cost.device.type == "cpu":
         return soft_argmin(cost, maxdisp)
     if cost.device.type != "cuda":
@@ -68,25 +73,56 @@ def soft_argmin_cuda(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
 soft_argmin_cuda.launches = 0
 
 
-class _SoftArgminFn(torch.autograd.Function):
-    """Kernel forward; backward re-derived through the plain version, as the
-    JAX ``soft_argmin_fused`` custom_vjp does."""
+@torch.library.custom_op("leastereo::band_soft_argmin", mutates_args=(), device_types="cuda")
+def band_soft_argmin(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """``torch.ops.leastereo.band_soft_argmin``: the band kernel on a
+    ``(B, D, h, w)`` CUDA cost, taken as a contiguous fp32 copy
+    (:func:`soft_argmin_cuda`, which raises on a cost the kernel refuses);
+    on the CPU the plain :func:`soft_argmin`. The cost's own dtype is what
+    the backward saves (bf16 in training). Graph tools (``torch.export``,
+    the FLOP counter) see the op, not the ctypes launch inside it."""
+    return soft_argmin_cuda(cost.float().contiguous(), maxdisp)
 
-    @staticmethod
-    def forward(ctx, cost, maxdisp):
-        ctx.save_for_backward(cost)
-        ctx.maxdisp = maxdisp
-        return soft_argmin_cuda(cost.float().contiguous(), maxdisp)
 
-    @staticmethod
-    def backward(ctx, grad):
-        (cost,) = ctx.saved_tensors
-        with torch.enable_grad():
-            c = cost.detach().requires_grad_(True)
-            (g,) = torch.autograd.grad(soft_argmin(c, ctx.maxdisp), c, grad)
-        return g, None
+@band_soft_argmin.register_kernel("cpu")
+def _band_soft_argmin_cpu(cost, maxdisp):
+    return soft_argmin(cost, maxdisp)
+
+
+@band_soft_argmin.register_fake
+def _band_soft_argmin_fake(cost, maxdisp):
+    _check_rank(cost)
+    b, _, h, w = cost.shape
+    return cost.new_empty((b, 3 * h, 3 * w), dtype=torch.float32)
+
+
+def _band_setup_context(ctx, inputs, output):
+    cost, ctx.maxdisp = inputs
+    ctx.save_for_backward(cost)
+
+
+def _band_backward(ctx, grad):
+    """The plain version's gradient, as the JAX ``soft_argmin_fused``
+    custom_vjp re-derives it."""
+    (cost,) = ctx.saved_tensors
+    with torch.enable_grad():
+        c = cost.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(soft_argmin(c, ctx.maxdisp), c, grad)
+    return g, None
+
+
+band_soft_argmin.register_autograd(_band_backward, setup_context=_band_setup_context)
+
+
+@register_flop_formula(torch.ops.leastereo.band_soft_argmin)
+def _band_flops(*args, **kwargs) -> int:
+    """0: torch's counter counts no elementwise work, so the plain
+    ``soft_argmin`` it replaces counts 0 as well."""
+    return 0
 
 
 def soft_argmin_fused(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
-    """Drop-in :func:`soft_argmin` with the band kernel's forward."""
-    return _SoftArgminFn.apply(cost, maxdisp)
+    """Drop-in :func:`soft_argmin` with the band kernel's forward:
+    ``torch.ops.leastereo.band_soft_argmin``, its backward the plain
+    version's on the cost as given."""
+    return band_soft_argmin(cost, maxdisp)

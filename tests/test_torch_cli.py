@@ -179,7 +179,10 @@ def test_crop_not_divisible_by_3_raises(workspace):  # noqa: F811
 
 def test_drivers_import_no_jax():
     code = (
-        "import sys, leastereo_tpu_torch.cli.predict, leastereo_tpu_torch.cli.evaluate, leastereo_tpu_torch.cli.train;"
+        "import sys, leastereo_tpu_torch.cli.predict, leastereo_tpu_torch.cli.evaluate, leastereo_tpu_torch.cli.train,"
+        " leastereo_tpu_torch.cli.export, leastereo_tpu_torch.utils, leastereo_tpu_torch.utils.tracing,"
+        " leastereo_tpu_torch.data.native, leastereo_tpu_torch.data.augment, leastereo_tpu_torch.data.demo,"
+        " leastereo_tpu_torch.data.lists, leastereo_tpu_torch.data.tools;"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith(('jax', 'flax', 'orbax'))"
         " or m.split('.')[0] == 'leastereo_tpu'];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -4,7 +4,9 @@ Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
 first use and held against its plain PyTorch version evaluated in float64 on
 the same inputs, at small ragged shapes and at the KITTI head shape; the
 predict driver launches its dtype's head once per frame, the train driver
-the band kernel once per step. Every test skips without a CUDA card. This file imports neither JAX
+the band kernel once per step; both heads pass ``torch.library.opcheck`` as
+custom ops on the card, and a loaded KITTI ``.pt2`` launches the sm90 head
+once per frame. Every test skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -224,3 +226,50 @@ def test_model_raises_on_refused_cost(dev):
     with torch.no_grad(), pytest.raises(ValueError, match="band kernel refuses"):
         model(x, x)
     assert [f.launches for f in counters] == n
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ops_pass_opcheck_on_card(dev, dtype):
+    """Both heads as custom ops on CUDA tensors: schema, autograd
+    registration, fake tensors and AOT dispatch (the bf16 volume routes to
+    the sm90 kernel, fp32 to the first design; the band kernel takes a bf16
+    cost as its fp32 copy)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    vol = torch.randn(1, 16, 8, 8, 16, generator=gen, device=dev).to(dtype).requires_grad_(True)
+    kern = (0.2 * torch.randn(1, 16, 3, 3, 3, generator=gen, device=dev)).requires_grad_(True)
+    torch.library.opcheck(torch.ops.leastereo.conv_soft_argmin.default, (vol, kern, 24))
+    cost = torch.from_numpy(_peaky_cost(2, 8, 5, 40)).to(dev).to(dtype).requires_grad_(True)
+    torch.library.opcheck(torch.ops.leastereo.band_soft_argmin.default, (cost, 24))
+
+
+def test_band_op_raises_on_refused_cost(dev):
+    """The op's CUDA implementation keeps the wrapper's gate: no plain fallback."""
+    n = soft_argmin_cuda.launches
+    with pytest.raises(ValueError, match="band kernel refuses"):
+        torch.ops.leastereo.band_soft_argmin(torch.zeros(1, 8, 4, 4, device=dev), 25)
+    with pytest.raises(ValueError, match="shared memory"):
+        torch.ops.leastereo.band_soft_argmin(torch.zeros(1, 570, 4, 4, device=dev), 1710)
+    assert soft_argmin_cuda.launches == n
+
+
+def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
+    """``cli.export``'s program at the KITTI shape, saved and loaded: the sm90
+    head once per frame and no other head, equal to the eager model."""
+    from leastereo_tpu_torch.cli.export import export_pt2
+
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="bfloat16"), device=dev)
+    path = tmp_path / "kitti.pt2"
+    torch.export.save(export_pt2(model, 384, 1248, dev), path)
+    prog = torch.export.load(path).module()
+    rng = np.random.RandomState(0)
+    frames = [tuple(torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
+              for _ in range(2)]
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, soft_argmin_cuda)
+    n = [f.launches for f in counters]
+    with torch.inference_mode():
+        got = [prog(left, right) for left, right in frames]
+    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0]
+    with torch.inference_mode():
+        for g, (left, right) in zip(got, frames):
+            assert g.shape == (1, 384, 1248)
+            assert torch.equal(g, model(left, right))

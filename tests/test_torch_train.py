@@ -330,11 +330,17 @@ def tree(tmp_path_factory):
 
 
 @pytest.mark.parametrize("shuffle,drop_last,workers", [(True, True, 2), (True, False, 0), (False, False, 2)])
-def test_batch_iterator_matches_jax(tree, shuffle, drop_last, workers):
+def test_batch_iterator_matches_jax(tree, shuffle, drop_last, workers, monkeypatch):
     from leastereo_tpu.data import StereoListDataset as JaxDataset
     from leastereo_tpu.data.pipeline import batch_iterator as jax_batches
 
-    from leastereo_tpu_torch.data import StereoListDataset, batch_iterator, prefetch_to_device
+    from leastereo_tpu_torch.data import StereoListDataset, batch_iterator, native, prefetch_to_device
+
+    # Both packages decode with PIL, so the batches are held bit for bit: the
+    # port's native reader (which JAX's loader takes only once its own library
+    # is built) standardises in another summation order, and is held to the
+    # PIL path within 1e-5 in tests/test_torch_data_tools.py.
+    monkeypatch.setattr(native, "native_available", lambda: False)
 
     kw = dict(dataset="sceneflow", list_file=str(tree / "train.list"), root=str(tree), crop_size=(12, 24),
               training=True, shift=2, seed=5)
