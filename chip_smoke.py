@@ -65,6 +65,26 @@ caught, so any failure exits non-zero):
    from ``best`` starting below the cold run's first loss. Prints the step
    and val frame times, the peak memory, and from one profiled step the
    device time by kernel kind and the band kernel's share.
+11. search: the band kernel at the search cost (2, 64, 64, 128), peaky,
+   wide and diffuse, against float64; one supernet weight step's gradients
+   (fp32, TF32 off, 96x192, maxdisp 48, 6-layer/12-layer filter-4 block-3
+   step-3 nets) of the kernel path against the plain path, loss and
+   per-tensor gradients, and of remat on against off, loss, gradients and
+   running statistics; then ``leastereo_tpu_torch.cli.search.main``
+   in-process on the reference search (``scripts/search.sh``: 192x384,
+   maxdisp 192, bf16, 10 epochs, arch steps from epoch 3, lr 0.025 to
+   0.001, arch lr 0.001; batch 2, since each bundled ``sceneflow_part``
+   search list holds 2 frames): every weight step's loss finite, the betas
+   unchanged through epoch 2 and moving every epoch after, ``best``
+   written, and exactly 27 band-kernel launches (10 weight steps, 7 arch
+   steps, 10 val frames; counts zeroed just before, read just after) and no
+   fused-head launch; then ``cli.decode.main`` on ``best`` (legal trellis
+   walks) and the decoded network at the serving width (filter 8, block 4)
+   on one KITTI 384x1248 bf16 frame: finite, exactly one sm90 launch.
+   Prints the median weight-step and arch-step ms (steps 3 on), the val
+   frame ms, the run's peak memory and the phase's seconds, and from one
+   profiled weight step the device time by kernel kind, the kernels
+   launched and the device's idle share.
 
 Then the kernel table, the card line and, last, the result line. Exits
 non-zero without printing a result when no CUDA card is present.
@@ -123,6 +143,17 @@ TOL_BAND_GRAD = 1e-4
 # worst: the paths share all but the head's forward).
 TOL_STEP_LOSS = 1e-5
 TOL_STEP_GRAD_MEDIAN, TOL_STEP_GRAD_WORST = 1e-5, 1e-4
+# Phase 11, search. The reference search (scripts/search.sh): 192x384 crops,
+# 10 epochs, arch steps from epoch 3, batch 2 (search.sh: 4; each bundled
+# search list holds 2 frames and the loader drops the last partial batch):
+# 10 weight steps, 7 arch steps and 10 val frames, one band launch each.
+SEARCH_H, SEARCH_W, SEARCH_B, SEARCH_EPOCHS, SEARCH_ALPHA_EPOCH = 192, 384, 2, 10, 3
+SEARCH_BAND_LAUNCHES = 27
+# Remat on against off, one supernet step: the recomputed cells run the same
+# kernels on the same inputs; gradients within 1e-4 relative (cuDNN's
+# weight-gradient kernels may sum in another order), the running statistics
+# equal to 1e-6.
+TOL_REMAT_GRAD, TOL_REMAT_STATS = 1e-4, 1e-6
 
 REPO = pathlib.Path(__file__).resolve().parent
 KITTI_ROOT = str(REPO / "dataset" / "kitti15_part")  # 324x576 frames
@@ -545,6 +576,288 @@ def train_phase(counters: dict, card: str) -> dict:
             "band_bound_by": band["bound_by"], "band_err": max(band["peaky_max_abs_err_px"], band["diffuse_max_abs_err_px"]),
             "head_ms": head["ms"], "head_plain_ms": head["plain_ms"], "head_bound_ms": head["bound_ms"],
             "head_err": max(head[f"{kind}_max_abs_err_px"] for kind in ("peaky", "wide", "diffuse"))}
+
+
+def search_phase(counters: dict, card: str) -> dict:
+    """Phase 11: NAS search. The band kernel at the search cost against
+    float64; one supernet weight step, kernel path against plain path and
+    remat on against off; ``cli.search.main`` on the reference search
+    configuration (scripts/search.sh) over the bundled ``sceneflow_part``
+    lists, then ``cli.decode.main`` on its ``best`` checkpoint and the
+    decoded network serving one KITTI frame. Returns the band kernel's
+    launches, check and times at the search cost, and the decoded frame's
+    sm90 launches."""
+    import argparse
+
+    import leastereo_tpu_torch.search.supernet as supernet_mod
+    from leastereo_tpu_torch.cli import decode as decode_cli
+    from leastereo_tpu_torch.cli import search as search_cli
+    from leastereo_tpu_torch.cli.common import build_model
+    from leastereo_tpu_torch.cli.config import add_model_args, search_parser
+    from leastereo_tpu_torch.models.genotypes import load_architecture
+    from leastereo_tpu_torch.models.matching_net import DEFAULT_SKIPS, MatchingNet
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+    from leastereo_tpu_torch.ops.softargmin import soft_argmin
+    from leastereo_tpu_torch.search import AutoStereoSupernet, SupernetConfig, search_loss
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(11)
+
+    # 11a. The band kernel at the search cost: (2, 64, 64, 128) at 192x384,
+    # maxdisp 192, against the plain version in float64.
+    b, d, h, w, maxdisp = SEARCH_B, 64, SEARCH_H // 3, SEARCH_W // 3, 192
+    band = {"card": card, "shape": [b, d, h, w], "tol_px": TOL_KERNEL_PX}
+    for kind in ("peaky", "wide", "diffuse"):
+        if kind == "diffuse":
+            cost = torch.randn(b, d, h, w, generator=gen, device=dev)
+        else:
+            cost = peaky_cost(gen, b, d, h, w, dev) * (WIDE if kind == "wide" else 1.0)
+        band[f"{kind}_max_abs_err_px"] = (
+            soft_argmin_cuda(cost, maxdisp).double() - soft_argmin(cost.double(), maxdisp)).abs().max().item()
+        if not band[f"{kind}_max_abs_err_px"] < TOL_KERNEL_PX:
+            emit({"phase": "search_band_kernel", **band})
+            raise AssertionError(f"band kernel at the search cost, {kind}: {band}")
+    band["ms"] = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
+    band["plain_ms"] = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
+    band["bound_ms"], band["bound_by"] = bound(cost.numel() * 4 + b * 9 * h * w * 4, 0, torch.float32, b * 9 * h * w * d)
+    emit({"phase": "search_band_kernel", **band})
+    del cost
+
+    # 11b. One supernet weight step's gradients (forward, search loss,
+    # backward), kernel path against plain path and remat on against off,
+    # fp32 with TF32 off, 96x192, maxdisp 48, the reference's 6/12-layer
+    # filter-4 block-3 step-3 nets.
+    hs, ws, md, bs = 96, 192, 48, 2
+    rng = np.random.RandomState(11)
+    left = torch.from_numpy(rng.randn(bs, hs, ws, 3).astype(np.float32)).to(dev)
+    right = torch.from_numpy((2.0 * rng.randn(bs, hs, ws, 3)).astype(np.float32)).to(dev)
+    target = torch.from_numpy(rng.uniform(0.0, md - 1, (bs, hs, ws)).astype(np.float32)).to(dev)
+
+    def supernet(remat: bool) -> AutoStereoSupernet:
+        fea, mat = (SupernetConfig(n, 4, 3, 3, remat=remat) for n in (6, 12))
+        return AutoStereoSupernet(md, fea, mat, dtype=torch.float32, generator=torch.Generator().manual_seed(11)).to(dev)
+
+    base = supernet(True).train()  # scale last_3 on the train-mode cost (moves base's BN stats only)
+    state = {k: v.clone() for k, v in base.state_dict().items()}
+    with torch.no_grad():
+        fl, fr = (base.feature(x.permute(0, 3, 1, 2)) for x in (left, right))
+        state["matching.last_3.conv.weight"].mul_(3.0 / base.matching(supernet_mod.build_cost_volume(fl, fr, md // 3)).std())
+    del base, fl, fr
+    runs = {}
+    for name, remat, head in (("kernel", True, None), ("plain", True, soft_argmin), ("kernel_no_remat", False, None)):
+        m = supernet(remat)
+        m.load_state_dict(state)
+        m.train()
+        n0 = soft_argmin_cuda.launches
+        saved = supernet_mod.soft_argmin_fused
+        if head is not None:
+            supernet_mod.soft_argmin_fused = head
+        try:
+            loss = search_loss(m(left, right).float(), target, md)
+            loss.backward()
+        finally:
+            supernet_mod.soft_argmin_fused = saved
+        runs[name] = (loss.item(), {k: p.grad.double() for k, p in m.named_parameters()},
+                      soft_argmin_cuda.launches - n0,
+                      {k: v for k, v in m.state_dict().items() if "running" in k or "num_batches" in k})
+        del m, loss
+
+    def rel_l2(a: dict, b: dict) -> dict:
+        return {k: ((a[k] - g).norm() / (g.norm() + 1e-30)).item() for k, g in b.items()}
+
+    (loss_k, g_k, n_k, st_k), (loss_p, g_p, n_p, _), (loss_n, g_n, n_n, st_n) = (
+        runs["kernel"], runs["plain"], runs["kernel_no_remat"])
+    rels, rels_remat = rel_l2(g_k, g_p), rel_l2(g_k, g_n)
+    worst, worst_remat = max(rels, key=rels.get), max(rels_remat, key=rels_remat.get)
+    stats_diff = max(((st_k[k].double() - v.double()).abs().max().item() for k, v in st_n.items()), default=0.0)
+    line = {"phase": "search_step_kernel_vs_plain", "card": card, "shape": [bs, hs, ws], "maxdisp": md,
+            "nets": "6/12 layers, filter 4, block 3, steps 3", "dtype": "float32", "tf32": False,
+            "loss_kernel": loss_k, "loss_plain": loss_p, "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+            "tol_loss_rel": TOL_STEP_LOSS, "grad_rel_l2_median": float(np.median(list(rels.values()))),
+            "grad_rel_l2_worst": rels[worst], "grad_worst_tensor": worst, "tol_grad_median": TOL_STEP_GRAD_MEDIAN,
+            "tol_grad_worst": TOL_STEP_GRAD_WORST, "band_launches": {"kernel_path": n_k, "plain_path": n_p},
+            "remat_off_loss": loss_n, "remat_loss_rel_diff": abs(loss_k - loss_n) / abs(loss_n),
+            "remat_grad_rel_l2_worst": rels_remat[worst_remat], "remat_grad_worst_tensor": worst_remat,
+            "remat_running_stats_max_abs_diff": stats_diff, "tol_remat_grad": TOL_REMAT_GRAD,
+            "tol_remat_stats": TOL_REMAT_STATS}
+    emit(line)
+    if (n_k, n_p, n_n) != (1, 0, 1) or not line["loss_rel_diff"] < TOL_STEP_LOSS:
+        raise AssertionError(f"search step, kernel against plain path: {line}")
+    if not (line["grad_rel_l2_median"] < TOL_STEP_GRAD_MEDIAN and rels[worst] < TOL_STEP_GRAD_WORST):
+        raise AssertionError(f"search step gradients, kernel against plain path: {line}")
+    if not (line["remat_loss_rel_diff"] < TOL_STEP_LOSS and rels_remat[worst_remat] < TOL_REMAT_GRAD
+            and stats_diff <= TOL_REMAT_STATS and st_k.keys() == st_n.keys()):
+        raise AssertionError(f"search step, remat on against off: {line}")
+    del runs, g_k, g_p, g_n, left, right, target, state
+    torch.cuda.empty_cache()
+
+    # 11c. The reference search through cli.search (scripts/search.sh), batch 2.
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, a user's setting
+    sf_root = str(REPO / "dataset" / "sceneflow_part")
+    recipe = ["--dataset", "sceneflow_part", "--data_root", sf_root, "--listset", "sceneflow_part",
+              "--lists_dir", str(REPO / "dataloaders" / "lists"), "--crop_height", str(SEARCH_H),
+              "--crop_width", str(SEARCH_W), "--maxdisp", str(maxdisp),
+              "--fea_filter_multiplier", "4", "--fea_block_multiplier", "3", "--fea_step", "3",
+              "--mat_filter_multiplier", "4", "--mat_block_multiplier", "3", "--mat_step", "3",
+              "--fea_num_layers", "6", "--mat_num_layers", "12", "--dtype", "bfloat16",
+              "--batch_size", str(SEARCH_B), "--epochs", str(SEARCH_EPOCHS), "--alpha_epoch", str(SEARCH_ALPHA_EPOCH),
+              "--lr", "0.025", "--min_lr", "0.001", "--arch_lr", "0.001", "--workers", "2", "--device", "cuda"]
+    result = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = recipe + ["--run_root", tmp, "--experiment", "search"]
+        init = search_cli.build_supernet(search_parser().parse_args(argv)).state_dict()
+        init_betas = {k: init[k].cpu() for k in ("feature.betas", "matching.betas")}
+        del init
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        printed = io.StringIO()
+        metrics = []
+
+        def keep(fn):
+            def wrapped(*args, **kwargs):
+                out = fn(*args, **kwargs)
+                metrics.append(out)
+                return out
+            return wrapped
+
+        saved_ws = search_cli.weight_step
+        search_cli.weight_step = keep(saved_ws)
+        t0 = time.perf_counter()
+        try:
+            with stage_times({"weight_step": (search_cli, "weight_step"), "arch_step": (search_cli, "arch_step"),
+                              "eval_step": (search_cli, "eval_step")}, {}) as ms, contextlib.redirect_stdout(printed):
+                rc = search_cli.main(argv)
+        finally:
+            search_cli.weight_step = saved_ws
+        run_s = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        exp = os.path.join(tmp, "sceneflow_part-search", "search")
+        ckpt = os.path.join(exp, "checkpoints")
+        kinds = {kind: sorted(os.listdir(os.path.join(ckpt, kind))) for kind in os.listdir(ckpt)}
+        betas = {}
+        for e in range(SEARCH_EPOCHS):
+            sd = torch.load(os.path.join(ckpt, "latest", f"{e}.pth"), map_location="cpu", weights_only=True)["state_dict"]
+            betas[e] = {k: sd[k] for k in init_betas}
+        n_w, n_a, n_v = len(ms["weight_step"]), len(ms["arch_step"]), len(ms["eval_step"])
+        frozen = all(torch.equal(betas[e][k], init_betas[k]) for e in range(SEARCH_ALPHA_EPOCH) for k in init_betas)
+        moved = all(not torch.equal(betas[e][k], betas[e - 1][k])
+                    for e in range(SEARCH_ALPHA_EPOCH, SEARCH_EPOCHS) for k in init_betas)
+        expect = {"band_soft_argmin": n_w + n_a + n_v}
+        line = {"phase": "search", "card": card, "recipe": recipe, "rc": rc, "seconds": run_s,
+                "weight_steps": n_w, "arch_steps": n_a, "val_frames": n_v, "launches": launches,
+                "weight_step_ms_median_3_on": float(np.median(ms["weight_step"][2:])),
+                "arch_step_ms_median_3_on": float(np.median(ms["arch_step"][2:])),
+                "val_frame_ms_median": float(np.median(ms["eval_step"])),
+                "weight_step_ms": ms["weight_step"], "arch_step_ms": ms["arch_step"], "val_frame_ms": ms["eval_step"],
+                "peak_mem_gb": peak_gb, "losses": [m["loss"] for m in metrics], "checkpoints": kinds,
+                "betas_frozen_before_alpha_epoch": frozen, "betas_move_from_alpha_epoch": moved,
+                "note": "step ms: host wall time of weight_step / arch_step, each ending in a host read of the loss"}
+        emit(line)
+        expected_steps = (SEARCH_EPOCHS, SEARCH_EPOCHS - SEARCH_ALPHA_EPOCH, SEARCH_EPOCHS)
+        if not (rc == 0 and (n_w, n_a, n_v) == expected_steps and sum(expected_steps) == SEARCH_BAND_LAUNCHES
+                and launches == {k: expect.get(k, 0) for k in counters}
+                and all(math.isfinite(m["loss"]) for m in metrics) and frozen and moved and kinds.get("best")):
+            raise AssertionError(f"search: {line}")
+
+        # One more weight step of the recipe's shapes under the profiler: the
+        # device time by kernel kind, the kernels launched, and the device's
+        # idle share against cli.search's untraced median step.
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        from leastereo_tpu_torch.data import ListSet, StereoListDataset, make_loader
+        from leastereo_tpu_torch.search import make_weight_optimizer, weight_step
+
+        args = search_parser().parse_args(argv)
+        ds = StereoListDataset("sceneflow_part", ListSet.resolve("sceneflow_part", args.lists_dir).search_weights,
+                               root=sf_root, crop_size=(SEARCH_H, SEARCH_W), training=True, seed=args.seed)
+        batch = next(iter(make_loader(ds, SEARCH_B, device=dev, seed=args.seed, num_workers=2)(0)))
+        model = search_cli.build_supernet(args)
+        opt = make_weight_optimizer(model.weight_parameters(), args.lr)
+        weight_step(model, opt, batch, maxdisp, args.lr)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            weight_step(model, opt, batch, maxdisp, args.lr)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+        groups = {}
+        for e in events:
+            kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
+            groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
+        prof_line = {"phase": "search_step_profile", "card": card, "profiled_step_device_ms": busy_ms,
+                     "device_idle_share": 1 - busy_ms / line["weight_step_ms_median_3_on"],
+                     "device_ops": sum(e.count for e in events),
+                     "band_kernel_device_ms": sum(e.self_device_time_total for e in events if "band_kernel" in e.key) / 1e3,
+                     "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                     "top_kernels_ms": [[e.key[:100], e.self_device_time_total / 1e3, e.count]
+                                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]],
+                     "note": "idle share: against cli.search's untraced median weight step (steps 3 on)"}
+        emit(prof_line)
+        if not prof_line["band_kernel_device_ms"] > 0:
+            raise AssertionError("the profiled search step shows no band kernel time")
+        del model, opt, batch, prof, events
+
+        # 11d. Decode best, then the decoded network at the serving width
+        # (filter 8, block 4) on one KITTI frame, bf16, eval.
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            rc_dec = decode_cli.main(["--checkpoint", os.path.join(ckpt, "best"), "--out_dir", os.path.join(tmp, "arch")])
+        files = {k: os.path.join(tmp, "arch", f) for k, f in (
+            ("net_arch_fea", "feature_network_path.npy"), ("cell_arch_fea", "feature_genotype.npy"),
+            ("net_arch_mat", "matching_network_path.npy"), ("cell_arch_mat", "matching_genotype.npy"))}
+        paths = {k: np.load(files[k]).tolist() for k in ("net_arch_fea", "net_arch_mat")}
+        legal = all(p[0] in (0, 1) and all(abs(a - c) <= 1 for a, c in zip(p, p[1:])) for p in paths.values())
+        parser = argparse.ArgumentParser()
+        add_model_args(parser)
+        args = parser.parse_args(["--maxdisp", "192", "--dtype", "bfloat16", "--device", "cuda",
+                                  *[x for k, f in files.items() for x in (f"--{k}", f)]])
+        model = build_model(args, seed=0)
+        # The skip model joins cells 1 and 4, and 4 and 8, by a channel concat
+        # (reference skip_model_3d.py:150-156; the JAX MatchingNet alike), so
+        # it takes only a matching path with each pair at one level. A searched
+        # path without that is served through the reference's non-skip
+        # matching net (MatchingNet(skips=()), retrain/new_model_3d.py).
+        mat_path = paths["net_arch_mat"]
+        skip_levels = [(mat_path[a], mat_path[t]) for a, t in DEFAULT_SKIPS]
+        skip_model = all(a == t for a, t in skip_levels)
+        if not skip_model:
+            cfg = model.config
+            model.matching = MatchingNet(
+                load_architecture(files["net_arch_mat"], files["cell_arch_mat"]),
+                cfg.fea_filter_multiplier * cfg.fea_block_multiplier, cfg.mat_filter_multiplier,
+                cfg.mat_block_multiplier, cfg.mat_steps, skips=(), generator=torch.Generator().manual_seed(0),
+            ).to(dev).eval()
+        rng = np.random.RandomState(12)
+        l, r = (torch.from_numpy(rng.randn(1, CLI_H, CLI_W, 3).astype(np.float32)).to(dev) for _ in range(2))
+        for fn in counters.values():
+            fn.launches = 0
+        with torch.inference_mode():
+            disp = model(l, r)
+            torch.cuda.synchronize()
+        decode_launches = {k: fn.launches for k, fn in counters.items()}
+        d_np = disp.float().cpu().numpy()
+        dline = {"phase": "search_decode", "card": card, "rc": rc_dec, "paths": paths, "legal_paths": legal,
+                 "matching_skip_levels": skip_levels, "matching_net": "skip" if skip_model else "non-skip",
+                 "genotypes": {k: np.load(files[k]).tolist() for k in ("cell_arch_fea", "cell_arch_mat")},
+                 "shape": list(d_np.shape), "finite": bool(np.isfinite(d_np).all()), "launches": decode_launches}
+        emit(dline)
+        if not (rc_dec == 0 and legal and d_np.shape == (1, CLI_H, CLI_W) and dline["finite"]
+                and decode_launches == {k: (1 if k == "fused_head_sm90" else 0) for k in counters}):
+            raise AssertionError(f"decode and serve: {dline}")
+        del model, disp
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    emit({"phase": "search_seconds", "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches["band_soft_argmin"], "ms": band["ms"], "plain_ms": band["plain_ms"],
+            "bound_ms": band["bound_ms"], "err": max(band[f"{k}_max_abs_err_px"] for k in ("peaky", "wide", "diffuse")),
+            "decode_launches": decode_launches["fused_head_sm90"], "weight_step_ms": line["weight_step_ms_median_3_on"],
+            "arch_step_ms": line["arch_step_ms_median_3_on"], "peak_mem_gb": peak_gb,
+            "step_device_ms": busy_ms, "step_idle_share": prof_line["device_idle_share"]}
 
 
 def frame_ms(fn, inputs, warmup: int = 3) -> list[float]:
@@ -1042,6 +1355,11 @@ def main() -> int:
                                         "train_bound_ms": train["head_bound_ms"],
                                         "train_max_abs_err": train["head_err"]})
 
+    # ---- 11. search: the band kernel at the search cost, a supernet step's
+    # kernel path against its plain path and remat on against off, the
+    # reference search through cli.search, decode, the decoded network
+    search = search_phase(counters, card)
+
     # ---- kernel table, card, result
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
@@ -1052,7 +1370,11 @@ def main() -> int:
     # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume);
     # export_launches: over the loaded .pt2 programs' frames (phase 9, zeroed
     # just before each); fp32_*: the first design on a KITTI fp32 volume
-    # (phase 3) and in an fp32 KITTI frame (phase 5).
+    # (phase 3) and in an fp32 KITTI frame (phase 5); search_launches: over
+    # the reference search's weight steps, arch steps and val frames (phase
+    # 11, zeroed just before); search_ms, search_plain_ms, search_bound_ms,
+    # search_max_abs_err: the band kernel at the search cost (2, 64, 64, 128);
+    # search_decode_launches: the decoded network's KITTI frame (phase 11).
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
@@ -1060,7 +1382,8 @@ def main() -> int:
          "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
          **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
-         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"]},
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"],
+         "search_decode_launches": search["decode_launches"]},
         {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
          "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
          "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
@@ -1076,7 +1399,9 @@ def main() -> int:
          "max_abs_err": band_err, "ms": band_ms,
          "plain_ms": band_plain_ms, "bound_ms": band_bound[0], "bound_by": band_bound[1], "library_ms": None,
          **cli_of["band_soft_argmin"], **train_of["band_soft_argmin"],
-         "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"]},
+         "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"],
+         "search_launches": search["launches"], "search_ms": search["ms"], "search_plain_ms": search["plain_ms"],
+         "search_bound_ms": search["bound_ms"], "search_max_abs_err": search["err"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

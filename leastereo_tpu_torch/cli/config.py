@@ -10,7 +10,16 @@ from __future__ import annotations
 
 import argparse
 
-__all__ = ["add_model_args", "add_data_args", "train_parser", "predict_parser", "evaluate_parser", "export_parser"]
+__all__ = [
+    "add_model_args",
+    "add_data_args",
+    "train_parser",
+    "search_parser",
+    "decode_parser",
+    "predict_parser",
+    "evaluate_parser",
+    "export_parser",
+]
 
 DATASETS = [
     "sceneflow",
@@ -113,6 +122,44 @@ def train_parser() -> argparse.ArgumentParser:
                    help="first epoch eligible for periodic checkpoints in n_epochs "
                    "mode (reference train.py:405 used 3000 for non-sceneflow)")
     p.add_argument("--max_steps_per_epoch", type=int, default=0, help="truncate epochs (smoke runs)")
+    return p
+
+
+def search_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Bilevel NAS search (reference search.py)")
+    add_model_args(p, with_arch_files=False)
+    add_data_args(p)
+    p.add_argument(
+        "--tensorboard", action="store_true",
+        help="also write TensorBoard event files next to metrics.jsonl (reference search.py:57)",
+    )
+    p.add_argument("--batch_size", type=int, default=4)
+    p.add_argument("--epochs", type=int, default=10)
+    p.add_argument("--lr", type=float, default=0.025)
+    p.add_argument("--min_lr", type=float, default=1e-3)
+    p.add_argument("--momentum", type=float, default=0.9)
+    p.add_argument("--weight_decay", type=float, default=3e-4)
+    p.add_argument("--arch_lr", type=float, default=1e-3)
+    p.add_argument("--arch_weight_decay", type=float, default=1e-3)
+    p.add_argument("--alpha_epoch", type=int, default=3, help="epoch to start arch updates")
+    p.add_argument("--seed", type=int, default=2019)
+    p.add_argument("--resume", type=str, default="",
+                   help="checkpoint to resume from: a .pth file, or a checkpoint kind directory "
+                   "(its latest epoch); tensors whose name and shape match are adopted")
+    p.add_argument("--experiment", type=str, default="default")
+    p.add_argument("--run_root", type=str, default="run")
+    p.add_argument("--max_steps_per_epoch", type=int, default=0)
+    return p
+
+
+def decode_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Decode searched arch params -> genotype .npy (reference decode.py)")
+    p.add_argument("--checkpoint", type=str, required=True,
+                   help="search checkpoint: a .pth file, or a checkpoint kind directory (its latest epoch)")
+    p.add_argument("--step", type=int, default=None, help="epoch file <step>.pth in a --checkpoint directory")
+    p.add_argument("--out_dir", type=str, default=None, help="default: <checkpoint dir>/architecture")
+    p.add_argument("--fea_step", type=int, default=3)
+    p.add_argument("--mat_step", type=int, default=3)
     return p
 
 

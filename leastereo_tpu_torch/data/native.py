@@ -7,10 +7,12 @@ no Python in the loop. At first use the library is built with ``g++ -O3
 -march=native -shared -fPIC ... -lpng16`` (the flags of
 ``scripts/build_native.sh``) into ``leastereo_tpu_torch/build/`` (listed in
 ``.gitignore``), and rebuilt when the source is newer. Where ``g++`` or
-``png.h`` is absent, :func:`native_available` is False and the loaders
-decode with PIL, as the JAX package does without its library; which reader
-runs is logged once. Any other build failure raises with the compiler's
-stderr. This is host decoding: the card is not involved.
+``png.h`` is absent, or the built library does not load (a libpng that the
+linker finds but the run-time loader does not), :func:`native_available` is
+False and the loaders decode with PIL, as the JAX package does without its
+library; which reader runs, and why, is logged once. Any other build
+failure raises with the compiler's stderr. This is host decoding: the card
+is not involved.
 """
 
 from __future__ import annotations
@@ -70,7 +72,12 @@ def _load() -> ctypes.CDLL | None:
             logger.warning("native PNG/PFM reader unavailable (%s): decoding with PIL", _missing)
             return None
         _build()
-    lib = ctypes.CDLL(str(_LIB_PATH))
+    try:
+        lib = ctypes.CDLL(str(_LIB_PATH))
+    except OSError as exc:
+        _missing = f"{_LIB_PATH.name} does not load: {exc}"
+        logger.warning("native PNG/PFM reader unavailable (%s): decoding with PIL", _missing)
+        return None
     s, p, ip, i = ctypes.c_char_p, ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int), ctypes.c_int
     lib.read_pfm.argtypes = [s, p, ip, ip, i]
     lib.read_png_rgb.argtypes = [s, p, ip, ip, i]

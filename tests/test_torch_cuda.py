@@ -5,8 +5,10 @@ first use and held against its plain PyTorch version evaluated in float64 on
 the same inputs, at small ragged shapes and at the KITTI head shape; the
 predict driver launches its dtype's head once per frame, the train driver
 the band kernel once per step; both heads pass ``torch.library.opcheck`` as
-custom ops on the card, and a loaded KITTI ``.pt2`` launches the sm90 head
-once per frame. Every test skips without a CUDA card. This file imports neither JAX
+custom ops on the card, a loaded KITTI ``.pt2`` launches the sm90 head
+once per frame, a search weight step and an arch step launch the band
+kernel once each, and remat gives the search step's loss, gradients and
+running statistics without it. Every test skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -273,3 +275,54 @@ def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
         for g, (left, right) in zip(got, frames):
             assert g.shape == (1, 384, 1248)
             assert torch.equal(g, model(left, right))
+
+
+def _search_setup(dev, remat, seed=3):
+    """A small fp32 supernet (3-layer filter-2 block-2 step-2 nets, maxdisp
+    48) on the card, its two optimizers and a 96x192 batch of 2."""
+    from leastereo_tpu_torch.search import AutoStereoSupernet, SupernetConfig, make_arch_optimizer, make_weight_optimizer
+
+    cfg = SupernetConfig(3, 2, 2, 2, remat=remat)
+    model = AutoStereoSupernet(48, cfg, cfg, dtype=torch.float32, generator=torch.Generator().manual_seed(seed)).to(dev)
+    rng = np.random.RandomState(seed)
+    batch = {"left": rng.randn(2, 96, 192, 3).astype(np.float32), "right": rng.randn(2, 96, 192, 3).astype(np.float32),
+             "disparity": rng.uniform(0, 47, (2, 96, 192)).astype(np.float32)}
+    return model, make_weight_optimizer(model.weight_parameters(), 0.025), make_arch_optimizer(model.arch_parameters()), batch
+
+
+def test_search_steps_launch_band_kernel_once(dev):
+    """A search weight step and an arch step each launch the band kernel
+    once (the supernet's head), and no fused head."""
+    from leastereo_tpu_torch.search import arch_step, weight_step
+
+    model, opt_w, opt_a, batch = _search_setup(dev, remat=True)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    n = [f.launches for f in counters]
+    m = weight_step(model, opt_w, batch, 48, 0.025)
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
+    arch_step(model, opt_a, batch, 48)
+    assert [f.launches - k for f, k in zip(counters, n)] == [2, 0, 0]
+    assert np.isfinite(m["loss"])
+
+
+def test_search_remat_matches_no_remat_on_card(dev):
+    """One weight step with remat on and off: equal loss, gradients within
+    1e-4 relative, and equal running statistics (the recomputation in the
+    backward pass does not move them again)."""
+    from leastereo_tpu_torch.search import weight_step
+
+    runs = {}
+    for remat in (True, False):
+        model, opt_w, _, batch = _search_setup(dev, remat)
+        m = weight_step(model, opt_w, batch, 48, 0.025)
+        runs[remat] = (m["loss"], {n: p.grad for n, p in model.named_parameters() if p.grad is not None},
+                       model.state_dict())
+    (loss_on, g_on, sd_on), (loss_off, g_off, sd_off) = runs[True], runs[False]
+    assert loss_on == pytest.approx(loss_off, rel=1e-6)
+    assert g_on.keys() == g_off.keys()
+    for k, g in g_off.items():
+        rel = ((g_on[k] - g).norm() / (g.norm() + 1e-30)).item()
+        assert rel < 1e-4, (k, rel)
+    for k, v in sd_off.items():
+        if "running" in k or "num_batches" in k:
+            torch.testing.assert_close(sd_on[k], v, rtol=1e-6, atol=1e-7, msg=k)

@@ -228,3 +228,22 @@ def test_native_reader_matches_jax_python_reader(name):
     np.testing.assert_array_equal(native.read_pfm_native(paths[2]), read_pfm(paths[2]))
     # The port's loader takes the native reader when it is built.
     np.testing.assert_array_equal(loaders.load_sceneflow_legacy(str(SCENEFLOW_PART), name), got)
+
+
+def test_native_reader_that_does_not_load_leaves_pil(monkeypatch, caplog):
+    """A built library that the loader cannot open (its libpng missing at
+    run time) leaves the PIL path, with the reason logged."""
+    def cannot_open(*args, **kwargs):
+        raise OSError("libpng16.so.16: cannot open shared object file")
+
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_missing", None)
+    monkeypatch.setattr(native, "_build", lambda: None)
+    monkeypatch.setattr(native, "_toolchain_missing", lambda: None)
+    monkeypatch.setattr(native.ctypes, "CDLL", cannot_open)
+    with caplog.at_level("WARNING", logger=native.__name__):
+        assert not native.native_available()
+    assert "does not load" in native._missing and "libpng16.so.16" in caplog.text
+    name = SCENEFLOW_PART_FRAMES[0]
+    got = loaders.load_sceneflow_legacy(str(SCENEFLOW_PART), name)
+    assert got.shape[0] == 8 and np.isfinite(got).all()
