@@ -11,31 +11,37 @@ caught, so any failure exits non-zero):
 3. kernels: each kernel on the card at the KITTI main-path shapes against
    its plain PyTorch version evaluated in float64, on peaky (trained-like),
    wide (the peaky cost scaled 10x, a span of hundreds of units) and
-   diffuse inputs: the sm90 fused head (bf16 volume), the first fused head
-   design (fp32 and bf16 volumes) and the band kernel; the band kernel and
-   the sm90 head on a 300x cost beside the fp32 plain version, both against
-   float64 (a measurement: there fp32 rounding of the cost alone moves the
-   result by ~3e-3 px); then their times on one bf16 input beside the
-   unfused yardstick (cuDNN ``last_3`` conv + band kernel), the band
-   kernel's grid and occupancy, and the first design's time at shapes that
-   show what limits it, and on a KITTI fp32 volume (the case it serves).
+   diffuse inputs: the sm90 fused head (bf16 volume), the fp32 sm90 fused
+   head (fp32 volume), the first fused head design (fp32 and bf16 volumes)
+   and the band kernel; the band kernel and both sm90 heads on a 300x cost
+   beside the fp32 plain version, all against float64 (a measurement: there
+   fp32 rounding of the cost alone moves the result by ~3e-3 px); then their
+   times on one bf16 input beside the unfused yardstick (cuDNN ``last_3``
+   conv + band kernel), the fp32 sm90 head and the first design in turns on
+   a KITTI fp32 volume beside the unfused fp32 yardstick (cuDNN fp32
+   ``last_3`` with TF32 off + band kernel), the band kernel's grid and
+   occupancy, and the first design's time at shapes that show what limits it.
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
    eval, random seeded weights: the default forward (sm90 fused head, once
    per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
    kernel). Launch counts are zeroed just before and read just after.
-5. layers and profile: per-layer times and the device's busy share; one
-   fp32 KITTI frame's device time and the first fused design's share of it.
+5. layers and profile: per-layer times and the device's busy share; four
+   fp32 KITTI frames' device time and the fp32 sm90 head's share of it (one
+   launch a frame, no other head's; counts zeroed just before, read just
+   after).
 6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48
-   (the first fused head design and the band kernel; counts zeroed just
-   before and read just after).
+   (the fp32 sm90 head and the band kernel; counts zeroed just before and
+   read just after); then the same with a 24-channel matching net
+   (``mat_filter_multiplier`` 6), which both sm90 gates refuse, so the first
+   fused head design serves it (one launch, none of the other heads).
 7. gate refusal: a cost the band kernel refuses raises on the card.
 8. cli: the predict and evaluate drivers (``leastereo_tpu_torch.cli``)
    called in-process on the bundled KITTI frames (``dataset/kitti15_part``)
    at 384x1248, maxdisp 192, with phase 4's weights saved as a torch file
    and given as ``--checkpoint``, writing into a temporary directory:
    evaluate on the 4 ``train`` frames by default (sm90 head), with
-   ``--confidence`` (band kernel) and with ``--dtype float32`` (the first
-   fused head design), then predict on the ``test`` frame. Each run's
+   ``--confidence`` (band kernel) and with ``--dtype float32`` (the fp32
+   sm90 head), then predict on the ``test`` frame. Each run's
    outputs, metrics and launch counts (zeroed just before, read just after:
    one launch of its head per frame, none of the others) are checked, and
    frame 0 of the default run is held against phase 4's model called
@@ -44,11 +50,12 @@ caught, so any failure exits non-zero):
    at 384x1248 (bf16) and of phase 6's at 96x192 (fp32, maxdisp 48), each
    passing its round-trip check; each ``.pt2`` loaded here and run with the
    counts zeroed just before (10 KITTI frames: one sm90 head each and nothing
-   else; 3 fp32 frames: one first-design head each), within 1e-3 px of the
+   else; 3 fp32 frames: one fp32 sm90 head each), within 1e-3 px of the
    eager model, its frame times beside the eager model's; a
-   ``utils.tracing.trace`` of one loaded KITTI frame must name the sm90
-   kernel; ``utils.profiling.model_flops`` of a KITTI bf16 frame, equal with
-   the head unfused, and the phase's peak memory.
+   ``utils.tracing.trace`` of one loaded frame of each program must name its
+   kernel (``head_sm90_kernel``, ``head_sm90_f32_kernel``);
+   ``utils.profiling.model_flops`` of a KITTI bf16 frame, equal with the head
+   unfused, and the phase's peak memory.
 10. train: the band kernel at the train forward's cost (4, 64, 96, 192),
    peaky and diffuse, forward and gradient against float64; the sm90 head
    at each val frame's volume (1, 32, 64, 96, 192) bf16, peaky, wide and
@@ -118,7 +125,7 @@ PEAK_SFU_S = 16 * 132 * 1.98e9
 
 # Kernel-name patterns for the per-frame device-time breakdown (first match wins).
 KERNEL_GROUPS = (
-    ("head kernels (this port)", ("head_kernel", "head_sm90_kernel", "band_kernel")),
+    ("head kernels (this port)", ("head_kernel", "head_sm90_kernel", "head_sm90_f32_kernel", "band_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm", "sm90_", "sm80_")),
     ("trilinear/bilinear resize", ("upsample",)),
@@ -165,7 +172,7 @@ KITTI_ARGS = ["--dataset", "kitti15_part", "--data_root", KITTI_ROOT,
 CLI_RUNS = (
     ("evaluate", "evaluate", "train", [], "fused_head_sm90"),
     ("evaluate --confidence", "evaluate", "train", ["--confidence"], "band_soft_argmin"),
-    ("evaluate --dtype float32", "evaluate", "train", ["--dtype", "float32"], "fused_head"),
+    ("evaluate --dtype float32", "evaluate", "train", ["--dtype", "float32"], "fused_head_sm90_f32"),
     ("predict", "predict", "test", [], "fused_head_sm90"),
 )
 
@@ -894,15 +901,16 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
     torch.cuda.reset_peak_memory_stats()
     torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as in the export driver's process
     rng = np.random.RandomState(9)
-    # (run, eager model, driver flags, (H, W), the head each frame must launch, frames)
+    # (run, eager model, driver flags, (H, W), the head each frame must
+    # launch, frames, its kernel's name in a trace)
     runs = (("kitti_bf16", model, ["--height", str(CLI_H), "--width", str(CLI_W)], (CLI_H, CLI_W),
-             "fused_head_sm90", EXPORT_FRAMES),
+             "fused_head_sm90", EXPORT_FRAMES, "head_sm90_kernel"),
             ("fp32_96x192", fp32_model, ["--dtype", "float32", "--height", "96", "--width", "192", "--maxdisp", "48"],
-             (96, 192), "fused_head", EXPORT_FP32_FRAMES))
+             (96, 192), "fused_head_sm90_f32", EXPORT_FP32_FRAMES, "head_sm90_f32_kernel"))
     export_launches = {k: 0 for k in counters}
     result = {"phase": "export", "card": card, "tol_px": TOL_EXPORT_PX}
     with tempfile.TemporaryDirectory() as tmp:
-        for run, eager, flags, (H, W), head, frames in runs:
+        for run, eager, flags, (H, W), head, frames, kernel_name in runs:
             ckpt, out = os.path.join(tmp, f"{run}.pth"), os.path.join(tmp, f"{run}.pt2")
             torch.save(eager.state_dict(), ckpt)
             argv = [sys.executable, "-m", "leastereo_tpu_torch.cli.export", *flags, "--checkpoint", ckpt, "--out", out]
@@ -937,26 +945,26 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
                 emit(result)
                 raise AssertionError(f"loaded {run} program: launches {launches} (expected {frames} of {head} only), "
                                      f"{diff} px from the eager model")
-            if run == "kitti_bf16":
-                # The device's own record that the loaded program runs the
-                # hand kernel; one eager frame traced the same way beside it
-                # (device ms and host aten calls per frame).
-                for label, fn in (("loaded", prog), ("eager", eager)):
-                    with torch.inference_mode(), trace(os.path.join(tmp, f"trace_{label}")) as prof:
-                        fn(*inputs[0])
-                    events = prof.key_averages()
-                    line[f"{label}_trace_device_ms"] = sum(
-                        e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
-                    line[f"{label}_trace_aten_calls"] = sum(
-                        e.count for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
-                    if label == "loaded":
-                        sm90_events = [e for e in events if "head_sm90_kernel" in e.key]
-                trace_text = pathlib.Path(tmp, "trace_loaded", "trace.json").read_text()
-                line["trace_names_sm90_kernel"] = "head_sm90_kernel" in trace_text
-                line["trace_sm90_device_ms"] = sum(e.self_device_time_total for e in sm90_events) / 1e3
-                if not (line["trace_names_sm90_kernel"] and line["trace_sm90_device_ms"] > 0):
-                    emit(result)
-                    raise AssertionError("the trace of a loaded KITTI frame does not show the sm90 kernel")
+            # The device's own record that the loaded program runs the hand
+            # kernel; one eager frame traced the same way beside it (device
+            # ms and host aten calls per frame).
+            for label, fn in (("loaded", prog), ("eager", eager)):
+                with torch.inference_mode(), trace(os.path.join(tmp, f"trace_{run}_{label}")) as prof:
+                    fn(*inputs[0])
+                events = prof.key_averages()
+                line[f"{label}_trace_device_ms"] = sum(
+                    e.self_device_time_total for e in events if e.device_type == DeviceType.CUDA) / 1e3
+                line[f"{label}_trace_aten_calls"] = sum(
+                    e.count for e in events if e.device_type == DeviceType.CPU and e.key.startswith("aten::"))
+                if label == "loaded":
+                    head_events = [e for e in events if kernel_name in e.key]
+            trace_text = pathlib.Path(tmp, f"trace_{run}_loaded", "trace.json").read_text()
+            line["trace_kernel"] = kernel_name
+            line["trace_names_kernel"] = kernel_name in trace_text
+            line["trace_kernel_device_ms"] = sum(e.self_device_time_total for e in head_events) / 1e3
+            if not (line["trace_names_kernel"] and line["trace_kernel_device_ms"] > 0):
+                emit(result)
+                raise AssertionError(f"the trace of a loaded {run} frame does not show {kernel_name}")
             del prog, got, inputs
         # FLOPs of one KITTI bf16 frame (torch's counter: convolutions and the
         # fused head's formula), equal with the head unfused.
@@ -1004,11 +1012,21 @@ def main() -> int:
         conv_soft_argmin_reference,
         conv_soft_argmin_simt,
         conv_soft_argmin_sm90,
+        conv_soft_argmin_sm90_f32,
     )
     from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
     from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
     dev = torch.device("cuda")
+    counters = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
+                "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
+
+    def zero_counts() -> None:
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read_counts() -> dict:
+        return {k: fn.launches for k, fn in counters.items()}
     # ---- 1. card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1025,16 +1043,19 @@ def main() -> int:
     _build.load_kernels()
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": build_s, "built": ["fused_head_sm90", "fused_head", "band_soft_argmin"],
+    emit({"phase": "build", "seconds": build_s,
+          "built": ["fused_head_sm90", "fused_head_sm90_f32", "fused_head", "band_soft_argmin"],
           "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions at the main path's shapes
     b, c, d, h, w, maxdisp = 1, 32, 64, 128, 416, 192
     gen = torch.Generator(device=dev).manual_seed(0)
-    head_err, sm90_err, band_err = 0.0, 0.0, 0.0
+    errs = {"fused_head_sm90": 0.0, "fused_head_sm90_f32": 0.0, "fused_head": 0.0}
+    band_err = 0.0
     for kind in ("peaky", "wide", "diffuse"):
         vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
         for name, fn, dt in (("fused_head_sm90", conv_soft_argmin_sm90, torch.bfloat16),
+                             ("fused_head_sm90_f32", conv_soft_argmin_sm90_f32, torch.float32),
                              ("fused_head", conv_soft_argmin_simt, torch.float32),
                              ("fused_head", conv_soft_argmin_simt, torch.bfloat16)):
             vol = vol32.to(dt)
@@ -1045,10 +1066,7 @@ def main() -> int:
                   "shape": list(vol.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
             if not err < TOL_KERNEL_PX:
                 raise AssertionError(f"{name} {kind} {dt}: {err} px")
-            if name == "fused_head_sm90":
-                sm90_err = max(sm90_err, err)
-            else:
-                head_err = max(head_err, err)
+            errs[name] = max(errs[name], err)
             del ref
         if kind == "diffuse":
             cost = torch.randn(b, d, h, w, generator=gen, device=dev)
@@ -1072,6 +1090,8 @@ def main() -> int:
     v300, k300 = v300.to(torch.bfloat16), SPAN_300 * k300
     ref = conv_soft_argmin_reference(v300.double(), k300.double(), maxdisp)
     wide["fused_head_sm90"] = (conv_soft_argmin_sm90(v300, k300, maxdisp).double() - ref).abs().max().item()
+    # The fp32 kernel on the same values (the bf16 volume's, in fp32), as the plain fp32 version.
+    wide["fused_head_sm90_f32"] = (conv_soft_argmin_sm90_f32(v300.float(), k300, maxdisp).double() - ref).abs().max().item()
     wide["fused_head_plain_fp32"] = (conv_soft_argmin_reference(v300.float(), k300, maxdisp).double() - ref).abs().max().item()
     c300 = SPAN_300 * peaky_cost(gen, b, d, h, w, dev)
     ref = soft_argmin(c300.double(), maxdisp)
@@ -1094,9 +1114,17 @@ def main() -> int:
     sm90_bf16w_ms = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern16, maxdisp))
     sm90_ms, head_ms, unfused_ms = min(sm90_ms), min(head_ms), min(unfused_ms)
     head_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
-    # The first design on the case it serves: a KITTI fp32 volume (checked
-    # against float64 above, as "fused_head" torch.float32), best of two turns.
-    head_fp32_ms = min(cuda_ms(lambda: conv_soft_argmin_simt(vol32, kern, maxdisp)) for _ in range(2))
+    # A KITTI fp32 volume (checked against float64 above): the fp32 sm90
+    # head, the first design and the unfused fp32 yardstick (cuDNN fp32
+    # last_3 with TF32 off, then the band kernel; the port does not run this
+    # pair on this route) in turns, best of two each.
+    unfused32 = lambda: soft_argmin_cuda(torch.nn.functional.conv3d(vol32, kern, padding=1)[:, 0], maxdisp)
+    f32_turns = {"sm90_f32": [], "first": [], "unfused": []}
+    for key in ("sm90_f32", "first", "unfused", "unfused", "first", "sm90_f32"):
+        fn = {"sm90_f32": lambda: conv_soft_argmin_sm90_f32(vol32, kern, maxdisp),
+              "first": lambda: conv_soft_argmin_simt(vol32, kern, maxdisp), "unfused": unfused32}[key]
+        f32_turns[key].append(cuda_ms(fn))
+    sm90_f32_ms, head_fp32_ms, unfused32_ms = (min(f32_turns[k]) for k in ("sm90_f32", "first", "unfused"))
     head_fp32_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol32, kern, maxdisp), iters=5)
     band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
     band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
@@ -1111,11 +1139,20 @@ def main() -> int:
           "unfused_ms": unfused_ms, "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
           "band_ms": band_ms, "band_plain_ms": band_plain_ms, "band_bound_ms": band_bound[0],
           "band_bound_by": band_bound[1], "exponentials": exps,
-          "fused_head_first_design_fp32_volume_ms": head_fp32_ms, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
+          "fused_head_sm90_f32_ms": sm90_f32_ms, "fused_head_sm90_f32_stages": _build.head_sm90_f32_stages(c, d),
+          "fused_head_sm90_f32_smem_bytes": _build.head_sm90_f32_smem_bytes(c, d),
+          "fused_head_first_design_fp32_volume_ms": head_fp32_ms, "unfused_fp32_ms": unfused32_ms,
+          "fp32_volume_turns_ms": f32_turns, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
           "fused_head_fp32_volume_bound_ms": head_fp32_bound[0], "fused_head_fp32_volume_bound_by": head_fp32_bound[1],
+          "fused_head_sm90_f32_share_of_bound": head_fp32_bound[0] / sm90_f32_ms,
+          "fused_head_sm90_f32_speedup_over_first_design": head_fp32_ms / sm90_f32_ms,
           "fp32_volume_mb": vol32.numel() * 4 / 1e6, "peak_bytes_s": PEAK_BYTES_S,
-          "note": "ms: best of two turns (sm90, first design, unfused, first design, sm90, unfused); "
-                  "fused heads take the fp32 kernel, the unfused cuDNN conv its bf16 rounding"})
+          "note": "ms: best of two turns (bf16: sm90, first design, unfused, first design, sm90, unfused; "
+                  "fp32 volume: sm90_f32, first design, unfused fp32, unfused fp32, first design, sm90_f32); "
+                  "fused heads take the fp32 kernel, the unfused bf16 cuDNN conv its bf16 rounding, the unfused "
+                  "fp32 one runs with TF32 off"})
+    if not sm90_f32_ms < head_fp32_ms:
+        raise AssertionError(f"fp32 sm90 head {sm90_f32_ms} ms is not faster than the first design's {head_fp32_ms} ms")
 
     # The band kernel's grid at KITTI against the card's resident-block slots.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1165,7 +1202,7 @@ def main() -> int:
     calibrate_head(model, left, right)
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
-    conv_soft_argmin_simt.launches = conv_soft_argmin_sm90.launches = soft_argmin_cuda.launches = 0
+    zero_counts()
     warmup = 3
     with torch.inference_mode():
         for _ in range(warmup):  # warm-up: cuDNN algorithm selection, allocator
@@ -1184,17 +1221,16 @@ def main() -> int:
                     break
         elapsed = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        default_launches = {"fused_head_sm90": conv_soft_argmin_sm90.launches, "fused_head": conv_soft_argmin_simt.launches}
+        default_launches = read_counts()
         disp_conf, ent = model_conf(left, right)
         torch.cuda.synchronize()
-    launches = {"fused_head_sm90": conv_soft_argmin_sm90.launches, "fused_head": conv_soft_argmin_simt.launches,
-                "band_soft_argmin": soft_argmin_cuda.launches}
+    launches = read_counts()
     default_frames = warmup + frames
     d_np = disp.float().cpu().numpy()
     ok = (
         d_np.shape == (1, H, W) and np.isfinite(d_np).all() and d_np.min() >= 0 and d_np.max() <= maxdisp
         and tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and math.isfinite(witness.item())
-        and default_launches == {"fused_head_sm90": default_frames, "fused_head": 0}
+        and default_launches == {k: default_frames if k == "fused_head_sm90" else 0 for k in counters}
         and launches["band_soft_argmin"] == 1
     )
     emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
@@ -1252,13 +1288,13 @@ def main() -> int:
     del model_conf, feats, pre, x  # phase 8 reuses the model
     torch.cuda.empty_cache()
 
-    # One fp32 KITTI frame (the first fused design's case) under the profiler,
-    # with cuDNN's TF32 on as PyTorch's default gives a user: its device time
-    # by kind and the first design's share of it.
+    # Four fp32 KITTI frames (the fp32 sm90 head's case), the last three
+    # under the profiler, with cuDNN's TF32 on as PyTorch's default gives a
+    # user: device time by kind and the fp32 sm90 head's share of it.
     model32 = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="float32"))
     model32.load_state_dict(model.state_dict())
     torch.backends.cudnn.allow_tf32 = True
-    conv_soft_argmin_simt.launches = 0
+    zero_counts()
     with torch.inference_mode():
         model32(left, right)  # warm-up
         torch.cuda.synchronize()
@@ -1266,20 +1302,23 @@ def main() -> int:
             for _ in range(3):
                 model32(left, right)
             torch.cuda.synchronize()
+    fp32_frame_launches = read_counts()
     torch.backends.cudnn.allow_tf32 = False
     events32 = [e for e in prof32.key_averages() if e.device_type == DeviceType.CUDA]
     fp32_frame_ms = sum(e.self_device_time_total for e in events32) / 1e3 / 3
-    fp32_head_frame_ms = sum(e.self_device_time_total for e in events32 if "head_kernel" in e.key) / 1e3 / 3
+    fp32_head_frame_ms = sum(e.self_device_time_total for e in events32 if "head_sm90_f32_kernel" in e.key) / 1e3 / 3
     groups32 = {}
     for e in events32:
         kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
         groups32[kind] = groups32.get(kind, 0.0) + e.self_device_time_total / 1e3 / 3
     emit({"phase": "fp32_frame", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "float32",
-          "cudnn_tf32": True, "device_ms_per_frame": fp32_frame_ms, "first_design_ms_per_frame": fp32_head_frame_ms,
-          "first_design_share": fp32_head_frame_ms / fp32_frame_ms, "first_design_launches": conv_soft_argmin_simt.launches,
+          "cudnn_tf32": True, "frames": 4, "device_ms_per_frame": fp32_frame_ms,
+          "fused_head_sm90_f32_ms_per_frame": fp32_head_frame_ms,
+          "fused_head_sm90_f32_share": fp32_head_frame_ms / fp32_frame_ms, "launches": fp32_frame_launches,
           "device_ms_per_frame_by_kind": dict(sorted(groups32.items(), key=lambda kv: -kv[1]))})
-    if conv_soft_argmin_simt.launches != 4 or not fp32_head_frame_ms > 0:
-        raise AssertionError(f"fp32 KITTI frame: {conv_soft_argmin_simt.launches} launches of the first design in 4 frames")
+    if fp32_frame_launches != {k: 4 if k == "fused_head_sm90_f32" else 0 for k in counters} or not fp32_head_frame_ms > 0:
+        raise AssertionError(f"fp32 KITTI frames: launches {fp32_frame_launches} in 4 frames, "
+                             f"fp32 sm90 head {fp32_head_frame_ms} ms a frame")
     del model32
     torch.cuda.empty_cache()
 
@@ -1288,7 +1327,7 @@ def main() -> int:
     left_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
     right_s = torch.from_numpy(rng.randn(1, hs, ws, 3).astype(np.float32)).to(dev)
     results = {}
-    conv_soft_argmin_simt.launches = conv_soft_argmin_sm90.launches = soft_argmin_cuda.launches = 0
+    zero_counts()
     kern_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32"), seed=1)
     calibrate_head(kern_model, left_s, right_s)
     state = kern_model.state_dict()
@@ -1298,29 +1337,53 @@ def main() -> int:
             LEAStereoConfig(maxdisp=md, compute_dtype="float32", return_entropy=entropy, pallas_head=False))
         k_model.load_state_dict(state)
         p_model.load_state_dict(state)
-        n_head, n_band = conv_soft_argmin_simt.launches, soft_argmin_cuda.launches
+        n_head, n_band = conv_soft_argmin_sm90_f32.launches, soft_argmin_cuda.launches
         with torch.inference_mode():
             got, ref = k_model(left_s, right_s), p_model(left_s, right_s)
         if entropy:
             got, ref = got[0], ref[0]
         used = "band_soft_argmin" if soft_argmin_cuda.launches > n_band else (
-            "fused_head" if conv_soft_argmin_simt.launches > n_head else None)
+            "fused_head_sm90_f32" if conv_soft_argmin_sm90_f32.launches > n_head else None)
         results["return_entropy" if entropy else "default"] = {
             "kernel": used, "max_abs_diff_px": (got - ref).abs().max().item(), "disp_std": ref.std().item()}
-    fp32_launches = {"fused_head": conv_soft_argmin_simt.launches, "fused_head_sm90": conv_soft_argmin_sm90.launches}
+    fp32_launches = read_counts()  # the default forward's head and the entropy forward's band kernel
     emit({"phase": "model_kernel_vs_plain", "shape": [1, hs, ws], "maxdisp": md, "dtype": "float32",
           "tol_px": TOL_MODEL_PX, "launches": fp32_launches, **results})
-    if fp32_launches != {"fused_head": 1, "fused_head_sm90": 0}:
+    if fp32_launches != {"fused_head_sm90": 0, "fused_head_sm90_f32": 1, "fused_head": 0, "band_soft_argmin": 1}:
         raise AssertionError(f"fp32 default forward launched {fp32_launches}")
     for name, r in results.items():
         if r["kernel"] is None or not r["max_abs_diff_px"] < TOL_MODEL_PX:
             raise AssertionError(f"whole model {name}: {r}")
 
+    # The first fused head design's path: the fp32 model with a 24-channel
+    # matching net (mat_filter_multiplier 6, as a user's own search or
+    # training may give), whose C both sm90 gates refuse; kernel path against
+    # plain path as above, counts zeroed just before and read just after.
+    cfg24 = {"maxdisp": md, "compute_dtype": "float32", "mat_filter_multiplier": 6}
+    k24 = best_sceneflow_model(LEAStereoConfig(**cfg24), seed=3)
+    calibrate_head(k24, left_s, right_s)
+    p24 = best_sceneflow_model(LEAStereoConfig(**cfg24, pallas_head=False))
+    p24.load_state_dict(k24.state_dict())
+    zero_counts()
+    with torch.inference_mode():
+        got24 = k24(left_s, right_s)
+        torch.cuda.synchronize()
+    first_launches = read_counts()
+    with torch.inference_mode():
+        first_err = (got24 - p24(left_s, right_s)).abs().max().item()
+    first_path = {"phase": "first_design_path", "card": card, "shape": [1, hs, ws], "maxdisp": md,
+                  "dtype": "float32", "mat_filter_multiplier": 6, "channels": 24, "launches": first_launches,
+                  "max_abs_diff_px": first_err, "tol_px": TOL_MODEL_PX, "disp_std": got24.std().item()}
+    emit(first_path)
+    if first_launches != {k: 1 if k == "fused_head" else 0 for k in counters} or not first_err < TOL_MODEL_PX:
+        raise AssertionError(f"first design path: {first_path}")
+    del k24, p24, got24
+
     # ---- 7. a cost the kernels refuse raises on the card: maxdisp 50 gives
     # D = 16 != 50 / 3, so the fused head falls to the band kernel, whose
     # wrapper raises rather than run the plain version.
     bad_model = best_sceneflow_model(LEAStereoConfig(maxdisp=md + 2, compute_dtype="float32"))
-    counts = (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches, soft_argmin_cuda.launches)
+    counts = read_counts()
     refusal = None
     with torch.inference_mode():
         try:
@@ -1330,12 +1393,10 @@ def main() -> int:
     emit({"phase": "gate_refusal", "maxdisp": md + 2, "raised": refusal})
     if refusal is None or "band kernel refuses" not in refusal:
         raise AssertionError("a refused cost on the card did not raise")
-    if (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches, soft_argmin_cuda.launches) != counts:
+    if read_counts() != counts:
         raise AssertionError("a refused cost launched a kernel")
 
     # ---- 8. the predict and evaluate drivers on the bundled KITTI frames
-    counters = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head": conv_soft_argmin_simt,
-                "band_soft_argmin": soft_argmin_cuda}
     cli = cli_phase(model, counters, card)
     cli_of = {r["head"]: {"cli_run": run, "cli_launches": r["launches"], "cli_frames": r["frames"]}
               for run, r in cli.items() if run != "predict"}
@@ -1364,34 +1425,49 @@ def main() -> int:
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
     # head), its confidence forward (phase 4, band kernel), the fp32 default
-    # forward (phase 6, first fused head design); finetune_launches: over the
-    # fine-tune's train steps and val frames (phase 10, zeroed just before);
-    # train_*: phase 10's check and times at the fine-tune's shapes (band
-    # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume);
-    # export_launches: over the loaded .pt2 programs' frames (phase 9, zeroed
-    # just before each); fp32_*: the first design on a KITTI fp32 volume
-    # (phase 3) and in an fp32 KITTI frame (phase 5); search_launches: over
-    # the reference search's weight steps, arch steps and val frames (phase
-    # 11, zeroed just before); search_ms, search_plain_ms, search_bound_ms,
+    # forward (phase 6, fp32 sm90 head), the fp32 forward with a 24-channel
+    # matching net (phase 6, first fused head design); fp32_frame_launches: the four fp32 KITTI
+    # frames of phase 5; finetune_launches: over the fine-tune's train steps
+    # and val frames (phase 10, zeroed just before); train_*: phase 10's check
+    # and times at the fine-tune's shapes (band kernel: the train cost (4, 64,
+    # 96, 192); sm90 head: the val volume); export_launches: over the loaded
+    # .pt2 programs' frames (phase 9, zeroed just before each); fp32_volume_*:
+    # on a KITTI fp32 volume (phase 3); search_launches: over the reference
+    # search's weight steps, arch steps and val frames (phase 11, zeroed just
+    # before); search_ms, search_plain_ms, search_bound_ms,
     # search_max_abs_err: the band kernel at the search cost (2, 64, 64, 128);
     # search_decode_launches: the decoded network's KITTI frame (phase 11).
+    # library_ms is null for the heads: no one PyTorch call computes them;
+    # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel).
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
-         "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": sm90_err, "ms": sm90_ms,
+         "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": errs["fused_head_sm90"], "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
-         **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
+         "yardstick_ms": unfused_ms, **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"],
          "search_decode_launches": search["decode_launches"]},
-        {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
-         "launches": fp32_launches["fused_head"], "launches_per_frame": fp32_launches["fused_head"] / 1,
-         "path": "fp32 default forward (phase 6); fp32 volumes and bf16 shapes the sm90 gate refuses",
-         "max_abs_err": head_err, "ms": head_ms, "plain_ms": head_plain_ms,
-         "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None, **cli_of["fused_head"],
-         **train_of["fused_head"], "fp32_volume_ms": head_fp32_ms, "fp32_volume_plain_ms": head_fp32_plain_ms,
-         "fp32_volume_bound_ms": head_fp32_bound[0], "fp32_volume_bound_by": head_fp32_bound[1],
+        {"name": "fused_head_sm90_f32", "route": "cuda", "source": SRC_SM90,
+         "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": fp32_launches["fused_head_sm90_f32"],
+         "launches_per_frame": fp32_launches["fused_head_sm90_f32"] / 1,
+         "path": "fp32 default forward (phase 6); every fp32 frame (phase 5, cli, export)",
+         "max_abs_err": errs["fused_head_sm90_f32"], "ms": sm90_f32_ms, "plain_ms": head_fp32_plain_ms,
+         "bound_ms": head_fp32_bound[0], "bound_by": head_fp32_bound[1], "library_ms": None,
+         "yardstick_ms": unfused32_ms, "share_of_bound": head_fp32_bound[0] / sm90_f32_ms,
+         "first_design_ms": head_fp32_ms, "wide_span_300x_err": wide["fused_head_sm90_f32"],
+         **cli_of["fused_head_sm90_f32"], **train_of["fused_head_sm90_f32"],
+         "fp32_frame_launches": fp32_frame_launches["fused_head_sm90_f32"], "fp32_frame_frames": 4,
          "fp32_kitti_frame_device_ms": fp32_frame_ms, "fp32_kitti_frame_kernel_ms": fp32_head_frame_ms,
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90_f32"]},
+        {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
+         "launches": first_launches["fused_head"], "launches_per_frame": first_launches["fused_head"] / 1,
+         "path": "fp32 forward, 24-channel matching net (phase 6); the bf16 and fp32 shapes both sm90 gates refuse",
+         "max_abs_err": errs["fused_head"], "path_kernel_vs_plain_px": first_err, "ms": head_ms,
+         "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
+         "yardstick_ms": unfused_ms, **train_of["fused_head"], "fp32_volume_ms": head_fp32_ms,
+         "fp32_volume_plain_ms": head_fp32_plain_ms, "fp32_volume_bound_ms": head_fp32_bound[0],
+         "fp32_volume_bound_by": head_fp32_bound[1], "fp32_frame_launches": fp32_frame_launches["fused_head"],
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head"]},
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],

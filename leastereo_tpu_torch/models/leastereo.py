@@ -6,8 +6,8 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
 
 * eval, not ``fast_head``, not ``return_entropy``, and a fused-head gate
   admits the shape: the ``last_3`` conv and the soft-argmin run as one CUDA
-  kernel (``ops/fused_head.py``: the sm90 kernel for bf16 volumes it takes,
-  else the first design);
+  kernel (``ops/fused_head.py``: the sm90 kernel of the volume's type, bf16
+  or fp32, where its gate takes the shape, else the first design);
 * otherwise the ``last_3`` conv (cuDNN), then ``soft_argmin_fast`` when
   ``fast_head`` is set, else the band kernel (``ops/fused_softargmin.py``).
   ``pallas_head=False`` selects the plain ``soft_argmin`` instead of either
@@ -16,7 +16,7 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
 Both kernels are reached through the custom ops ``torch.ops.leastereo.*``
 (``conv_soft_argmin_fused``, ``soft_argmin_fused``), so ``torch.export``
 traces the model with them in its graph. The routing above reads only
-shapes, dtypes and the config, and so traces; the op itself picks the sm90
+shapes, dtypes and the config, and so traces; the op itself picks an sm90
 kernel or the first design from the volume it is given.
 
 A refused fused head is logged once per reason and falls to the band kernel;

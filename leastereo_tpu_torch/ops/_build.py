@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` is compiled with ``nvcc`` into one shared library with a plain
-C interface, at first use, into ``leastereo_tpu_torch/build/`` (listed in
-``.gitignore``), and loaded with ``ctypes``. Nothing here runs at import
+Each ``csrc/*.cu`` is compiled by its own ``nvcc``, all started together,
+and the objects linked into one shared library with a plain C interface, at
+first use, into ``leastereo_tpu_torch/build/`` (listed in ``.gitignore``),
+and loaded with ``ctypes``. Nothing here runs at import
 time: the CPU tests import every module on machines without ``nvcc``.
 The library is rebuilt when a source or header (``*.cu``, ``*.cuh``) is
 newer than it. It links no ``-lcuda``: the one libcuda function it needs
@@ -25,6 +26,8 @@ __all__ = [
     "band_smem_bytes",
     "head_smem_bytes",
     "head_sm90_smem_bytes",
+    "head_sm90_f32_stages",
+    "head_sm90_f32_smem_bytes",
     "SMEM_LIMIT",
 ]
 
@@ -39,10 +42,14 @@ SMEM_LIMIT = 232448  # dynamic shared memory one block may use on Hopper (227 KB
 
 # Geometry of csrc/fused_head_sm90.cu: TH x TW = 8 x 16 low-res pixels per
 # block; a TMA box of one depth plane is [C][SR+1][24] bf16 (the +-2 halo
-# rounded up to whole 16-byte rows, one spare row), two boxes in the ring; the
-# tap products P are fp32 [27][(SR)(SW) + 4].
+# rounded up to whole 16-byte rows, one spare row), two boxes in the ring, or
+# two boxes [C/2][SR][20] fp32 (one mbarrier each) a stage, up to two stages
+# (below); the tap products P are fp32 [27][(SR)(SW) + 4].
 SM90_TILE_H, SM90_TILE_W, SM90_STAGES = 8, 16, 2
+SM90_F32_MAX_STAGES = 2
+SMEM_PAIR_LIMIT = 115712  # the same with two blocks an SM: (233,472 - 2 x 1 KB reserved) / 2
 _SM90_BOX = 24 * (SM90_TILE_H + 5)
+_SM90_F32_BOX = 20 * (SM90_TILE_H + 4)
 _SM90_P = 27 * ((SM90_TILE_H + 4) * (SM90_TILE_W + 4) + 4)
 
 
@@ -64,6 +71,33 @@ def head_sm90_smem_bytes(channels: int, d: int) -> int:
     products and the fp32 cost tile [D][TH+2][TW+2], plus one mbarrier a stage."""
     cost = 4 * d * (SM90_TILE_H + 2) * (SM90_TILE_W + 2)
     return SM90_STAGES * (2 * channels * _SM90_BOX + 8) + 4 * _SM90_P + cost
+
+
+def _sm90_f32_fixed(d: int) -> int:
+    return 4 * _SM90_P + 4 * d * (SM90_TILE_H + 2) * (SM90_TILE_W + 2)
+
+
+def _sm90_f32_fit(channels: int, d: int, limit: int) -> int:
+    fit = max(limit - _sm90_f32_fixed(d), 0) // (4 * channels * _SM90_F32_BOX + 16)
+    return min(fit, SM90_F32_MAX_STAGES)
+
+
+def head_sm90_f32_stages(channels: int, d: int) -> int:
+    """Ring depth of the fp32 sm90 head: the fp32 stages (each with its two
+    mbarriers) that fit beside the tap products and the cost tile, at most
+    two, within half an SM's shared memory for C <= 32 when one fits there
+    (two blocks an SM), else within a whole block's limit; 0 when none fits."""
+    if channels <= 32 and _sm90_f32_fit(channels, d, SMEM_PAIR_LIMIT) >= 1:
+        return _sm90_f32_fit(channels, d, SMEM_PAIR_LIMIT)
+    return _sm90_f32_fit(channels, d, SMEM_LIMIT)
+
+
+def head_sm90_f32_smem_bytes(channels: int, d: int) -> int:
+    """Shared memory of the fp32 sm90 fused head: its ring (at least one
+    stage, each with two mbarriers), the tap products and the fp32 cost tile.
+    Above ``SMEM_LIMIT`` exactly when no stage fits."""
+    stages = max(head_sm90_f32_stages(channels, d), 1)
+    return stages * (4 * channels * _SM90_F32_BOX + 16) + _sm90_f32_fixed(d)
 
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -96,12 +130,23 @@ def _build(lib_path: pathlib.Path, sources: list[pathlib.Path]) -> None:
     # workers) never load a half-written library.
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib_path.parent)
     os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (lib_path.parent / "nvcc.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    compile_flags = [f for f in _NVCC_FLAGS if f != "-shared"]
+    pipe = {"stdout": subprocess.PIPE, "stderr": subprocess.STDOUT, "text": True}
+    with tempfile.TemporaryDirectory(dir=lib_path.parent) as objdir:
+        # One nvcc a source, all started together, then one link.
+        objs = [os.path.join(objdir, f"{src.stem}.o") for src in sources]
+        procs = [subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", obj, str(src)], **pipe)
+                 for src, obj in zip(sources, objs)]
+        steps = [(proc.args, proc.communicate()[0], proc.returncode) for proc in procs]
+        if all(rc == 0 for *_, rc in steps):
+            link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objs], **pipe)
+            steps.append((link.args, link.stdout, link.returncode))
+    (lib_path.parent / "nvcc.log").write_text("".join(" ".join(cmd) + "\n" + out for cmd, out, _ in steps))
+    failed = [(cmd, out, rc) for cmd, out, rc in steps if rc != 0]
+    if failed:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        cmd, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{out[-4000:]}")
     os.replace(tmp, lib_path)
 
 
@@ -133,14 +178,23 @@ def load_kernels() -> ctypes.CDLL:
     lib.lst_head_sm90_smem_bytes.restype = ctypes.c_longlong
     lib.lst_head_sm90_soft_argmin.argtypes = [p, p, p, i, i, i, i, i, p]
     lib.lst_head_sm90_soft_argmin.restype = i
+    lib.lst_head_sm90_f32_smem_bytes.argtypes = [i, i]
+    lib.lst_head_sm90_f32_smem_bytes.restype = ctypes.c_longlong
+    lib.lst_head_sm90_f32_stages.argtypes = [i, i]
+    lib.lst_head_sm90_f32_stages.restype = i
+    lib.lst_head_sm90_f32_soft_argmin.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.lst_head_sm90_f32_soft_argmin.restype = i
     # The gates decide with the formulas above: hold them to the built layout
     # (D not a multiple of DCHUNK included) so a gate never admits a shape
     # the kernel cannot launch.
-    for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 170), (32, 569)):
-        host = (band_smem_bytes(d), head_smem_bytes(c, d), head_sm90_smem_bytes(c, d))
-        built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d), lib.lst_head_sm90_smem_bytes(c, d))
+    for c, d in ((16, 1), (32, 13), (32, 64), (32, 70), (64, 64), (32, 136), (64, 170), (32, 569)):
+        host = (band_smem_bytes(d), head_smem_bytes(c, d), head_sm90_smem_bytes(c, d),
+                head_sm90_f32_smem_bytes(c, d), head_sm90_f32_stages(c, d))
+        built = (lib.lst_band_smem_bytes(d), lib.lst_head_smem_bytes(c, d), lib.lst_head_sm90_smem_bytes(c, d),
+                 lib.lst_head_sm90_f32_smem_bytes(c, d), lib.lst_head_sm90_f32_stages(c, d))
         if host != built:
-            raise RuntimeError(f"shared memory (band, head, sm90 head) at C={c}, D={d}: library {built} != host {host}")
+            raise RuntimeError(f"shared memory (band, head, sm90 head, fp32 sm90 head and its stages) at C={c}, "
+                               f"D={d}: library {built} != host {host}")
     _lib = lib
     return lib
 

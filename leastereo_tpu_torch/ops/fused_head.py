@@ -1,23 +1,27 @@
 """Fused matching head: the ``last_3`` 3x3x3 conv (C -> 1) + 3x upsample +
 softmin + soft-argmin in one kernel.
 
-Port of ``leastereo_tpu/ops/pallas_head.py``. Two CUDA kernels replace the
-Pallas ``_head_kernel`` (``pallas_head.py:96-236``); both compute each
+Port of ``leastereo_tpu/ops/pallas_head.py``. CUDA kernels replace the
+Pallas ``_head_kernel`` (``pallas_head.py:96-236``); each computes each
 block's ``(D, TH+2, TW+2)`` cost tile from the pre-head volume, accumulating
 the ``27 * C`` taps in fp32 even for a bf16 volume (the property the TPU
 kernel's parity record credits: rounding the cost to bf16 moves the
-disparity by up to ~1.3 px), edge-replicate the tile after the conv, and run
-the band kernel's upsample + softmin stage on it. The ``(B, D, h, w)`` cost
-never reaches device memory.
+disparity by up to ~1.3 px), edge-replicates the tile after the conv, and
+runs the band kernel's upsample + softmin stage on it. The ``(B, D, h, w)``
+cost never reaches device memory.
 
-- ``csrc/fused_head_sm90.cu`` (:func:`conv_soft_argmin_sm90`), the main
-  path's: bf16 volumes staged plane by plane with TMA into an mbarrier ring,
-  the channel contraction on tensor cores (``mma.sync``, each fp32 weight
-  split into three bf16 parts whose sum is exact; one part when the weights
-  are bf16), the 27-tap sum in fp32.
+- ``csrc/fused_head_sm90.cu``, one body for two volume types: volumes staged
+  plane by plane with TMA into an mbarrier ring, the channel contraction on
+  tensor cores (``mma.sync``), the 27-tap sum in fp32.
+  - :func:`conv_soft_argmin_sm90`, the main path's, bf16 volumes: each fp32
+    weight split into three bf16 parts whose sum is exact (one part when the
+    weights are bf16).
+  - :func:`conv_soft_argmin_sm90_f32`, fp32 volumes: 3xTF32, each voxel and
+    weight split into two tf32 parts and three products kept, so the conv
+    is fp32-accurate whatever the TF32 flags of cuDNN and cuBLAS say.
 - ``csrc/soft_argmin_heads.cu`` (:func:`conv_soft_argmin_simt`), the first
   design: the conv in fp32 on CUDA cores, one input channel staged at a time.
-  It serves fp32 volumes and the bf16 shapes the sm90 gate refuses.
+  It serves the bf16 and fp32 shapes both sm90 gates refuse.
 
 :func:`conv_soft_argmin_cuda` routes between them before launch. The model
 reaches it through the custom op ``torch.ops.leastereo.conv_soft_argmin``
@@ -41,6 +45,7 @@ __all__ = [
     "conv_soft_argmin_reference",
     "conv_soft_argmin_simt",
     "conv_soft_argmin_sm90",
+    "conv_soft_argmin_sm90_f32",
     "conv_soft_argmin_cuda",
     "conv_soft_argmin",
     "conv_soft_argmin_fused",
@@ -64,18 +69,23 @@ def fused_head_gate_reason(channels: int, d: int, maxdisp: int, dtype: torch.dty
 
 
 def fused_head_sm90_gate_reason(channels: int, d: int, w: int, maxdisp: int, dtype: torch.dtype) -> str | None:
-    """``None`` when the sm90 fused head takes a contiguous ``(B, channels, d,
-    h, w)`` volume of ``dtype``; otherwise the reason it refuses. Any ``h``
-    and batch are taken."""
+    """``None`` when an sm90 fused head takes a contiguous ``(B, channels, d,
+    h, w)`` volume of ``dtype`` (bfloat16: :func:`conv_soft_argmin_sm90`;
+    float32: :func:`conv_soft_argmin_sm90_f32`); otherwise the reason it
+    refuses. Any ``h`` and batch are taken."""
     if maxdisp != 3 * d:
         return f"maxdisp {maxdisp} != 3 * D ({d})"
-    if dtype != torch.bfloat16:
-        return f"volume dtype {dtype} (the sm90 kernel takes bfloat16)"
+    if dtype not in (torch.bfloat16, torch.float32):
+        return f"volume dtype {dtype} (the sm90 kernels take bfloat16 or float32)"
     if channels % 16 or not 16 <= channels <= 64:
-        return f"C={channels} (the sm90 kernel takes 16, 32, 48 or 64 channels)"
-    if w % 8:
-        return f"w={w} is not a multiple of 8 (TMA needs 16-byte row strides)"
-    smem = _build.head_sm90_smem_bytes(channels, d)
+        return f"C={channels} (the sm90 kernels take 16, 32, 48 or 64 channels)"
+    per_row = 8 if dtype == torch.bfloat16 else 4
+    if w % per_row:
+        return f"w={w} is not a multiple of {per_row} (TMA needs 16-byte row strides)"
+    if dtype == torch.bfloat16:
+        smem = _build.head_sm90_smem_bytes(channels, d)
+    else:
+        smem = _build.head_sm90_f32_smem_bytes(channels, d)
     if smem > _build.SMEM_LIMIT:
         return f"D={d}, C={channels} needs {smem} B of shared memory > {_build.SMEM_LIMIT}"
     return None
@@ -83,10 +93,10 @@ def fused_head_sm90_gate_reason(channels: int, d: int, w: int, maxdisp: int, dty
 
 def fused_head_route(channels: int, d: int, w: int, maxdisp: int, dtype: torch.dtype) -> str | None:
     """Which fused head kernel takes a contiguous ``(B, channels, d, h, w)``
-    volume of ``dtype``: ``"sm90"``, ``"simt"`` (the first design), or
-    ``None`` when both refuse it."""
+    volume of ``dtype``: ``"sm90"`` (bf16) or ``"sm90_f32"`` (fp32), then
+    ``"simt"`` (the first design), or ``None`` when all refuse it."""
     if fused_head_sm90_gate_reason(channels, d, w, maxdisp, dtype) is None:
-        return "sm90"
+        return "sm90" if dtype == torch.bfloat16 else "sm90_f32"
     if fused_head_gate_reason(channels, d, maxdisp, dtype) is None:
         return "simt"
     return None
@@ -146,36 +156,63 @@ def conv_soft_argmin_simt(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int)
 conv_soft_argmin_simt.launches = 0
 
 
+def _sm90(wrapper, vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int, dtype: torch.dtype, what: str, entry: str):
+    """Gate, check and launch one of the sm90 heads (``lib.<entry>``) on a
+    CUDA volume of ``dtype``, counting the launch on ``wrapper.launches``; a
+    CPU volume takes the plain version."""
+    _check_args(vol, kernel)
+    if vol.device.type == "cpu":
+        return conv_soft_argmin_reference(vol, kernel, maxdisp)
+    b, c, d, h, w = vol.shape
+    if vol.dtype != dtype:
+        raise ValueError(f"{what} takes a {dtype} volume, got {vol.dtype}")
+    reason = fused_head_sm90_gate_reason(c, d, w, maxdisp, vol.dtype)
+    if reason is not None:
+        raise ValueError(f"{what} refuses this volume: {reason}")
+    if not vol.is_contiguous() or vol.data_ptr() % 16:
+        raise ValueError(f"{what} takes a contiguous, 16-byte aligned volume")
+    out = _launch(vol, kernel, f"{what} kernel", lambda lib, k32, out, stream: getattr(lib, entry)(
+        vol.data_ptr(), k32.data_ptr(), out.data_ptr(), b, c, d, h, w, stream))
+    wrapper.launches += 1
+    return out
+
+
 def conv_soft_argmin_sm90(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
     """The sm90 fused head (``lst_head_sm90_soft_argmin``) on a ``(B, C, D, h,
     w)`` bfloat16 contiguous, 16-byte aligned CUDA volume that
     :func:`fused_head_sm90_gate_reason` admits, with a ``(1, C, 3, 3, 3)``
     kernel (taken in fp32) -> ``(B, 3h, 3w)`` fp32. A CPU volume takes
     :func:`conv_soft_argmin_reference`. ``.launches`` counts the launches."""
-    _check_args(vol, kernel)
-    if vol.device.type == "cpu":
-        return conv_soft_argmin_reference(vol, kernel, maxdisp)
-    b, c, d, h, w = vol.shape
-    reason = fused_head_sm90_gate_reason(c, d, w, maxdisp, vol.dtype)
-    if reason is not None:
-        raise ValueError(f"sm90 fused head refuses this volume: {reason}")
-    if not vol.is_contiguous() or vol.data_ptr() % 16:
-        raise ValueError("sm90 fused head takes a contiguous, 16-byte aligned volume")
-    out = _launch(vol, kernel, "sm90 fused head kernel", lambda lib, k32, out, stream: lib.lst_head_sm90_soft_argmin(
-        vol.data_ptr(), k32.data_ptr(), out.data_ptr(), b, c, d, h, w, stream))
-    conv_soft_argmin_sm90.launches += 1
-    return out
+    return _sm90(conv_soft_argmin_sm90, vol, kernel, maxdisp, torch.bfloat16, "sm90 fused head",
+                 "lst_head_sm90_soft_argmin")
 
 
 conv_soft_argmin_sm90.launches = 0
+
+
+def conv_soft_argmin_sm90_f32(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """The fp32 sm90 fused head (``lst_head_sm90_f32_soft_argmin``, 3xTF32
+    contraction) on a ``(B, C, D, h, w)`` float32 contiguous, 16-byte aligned
+    CUDA volume that :func:`fused_head_sm90_gate_reason` admits, with a
+    ``(1, C, 3, 3, 3)`` kernel (taken in fp32) -> ``(B, 3h, 3w)`` fp32. A CPU
+    volume takes :func:`conv_soft_argmin_reference`. ``.launches`` counts the
+    launches, apart from the bf16 kernel's."""
+    return _sm90(conv_soft_argmin_sm90_f32, vol, kernel, maxdisp, torch.float32, "fp32 sm90 fused head",
+                 "lst_head_sm90_f32_soft_argmin")
+
+
+conv_soft_argmin_sm90_f32.launches = 0
+
+_SM90 = {"sm90": conv_soft_argmin_sm90, "sm90_f32": conv_soft_argmin_sm90_f32}
 
 
 def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int) -> torch.Tensor:
     """Fused head on a ``(B, C, D, h, w)`` volume with a ``(1, C, 3, 3, 3)``
     kernel -> ``(B, 3h, 3w)`` fp32.
 
-    A CUDA volume the sm90 gate admits (bf16, contiguous, 16-byte aligned)
-    runs :func:`conv_soft_argmin_sm90`; any other CUDA volume runs
+    A CUDA volume an sm90 gate admits (bf16 or fp32, contiguous, 16-byte
+    aligned) runs :func:`conv_soft_argmin_sm90` or
+    :func:`conv_soft_argmin_sm90_f32`; any other CUDA volume runs
     :func:`conv_soft_argmin_simt`, which raises on what it refuses. A CPU
     volume takes :func:`conv_soft_argmin_reference`. The route reads the
     volume's address, so it is taken here, on real tensors, inside the op.
@@ -185,8 +222,9 @@ def conv_soft_argmin_cuda(vol: torch.Tensor, kernel: torch.Tensor, maxdisp: int)
         return conv_soft_argmin_reference(vol, kernel, maxdisp)
     _, c, d, _, w = vol.shape
     aligned = vol.is_contiguous() and vol.data_ptr() % 16 == 0
-    if aligned and fused_head_route(c, d, w, maxdisp, vol.dtype) == "sm90":
-        return conv_soft_argmin_sm90(vol, kernel, maxdisp)
+    route = fused_head_route(c, d, w, maxdisp, vol.dtype) if aligned else None
+    if route in _SM90:
+        return _SM90[route](vol, kernel, maxdisp)
     return conv_soft_argmin_simt(vol, kernel, maxdisp)
 
 

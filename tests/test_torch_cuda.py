@@ -2,8 +2,10 @@
 
 Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
 first use and held against its plain PyTorch version evaluated in float64 on
-the same inputs, at small ragged shapes and at the KITTI head shape; the
-predict driver launches its dtype's head once per frame, the train driver
+the same inputs, at small ragged shapes and at the KITTI head shape (the
+fp32 sm90 head also on peaky, wide and diffuse inputs, C in {16, 32, 64},
+both of its ring layouts); the predict driver launches its dtype's head
+(bf16: the sm90 head; fp32: the fp32 sm90 head) once per frame, the train driver
 the band kernel once per step; both heads pass ``torch.library.opcheck`` as
 custom ops on the card, a loaded KITTI ``.pt2`` launches the sm90 head
 once per frame, a search weight step and an arch step launch the band
@@ -24,6 +26,7 @@ from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_reference,
     conv_soft_argmin_simt,
     conv_soft_argmin_sm90,
+    conv_soft_argmin_sm90_f32,
     fused_head_route,
 )
 from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
@@ -81,8 +84,9 @@ def _head_case(dev, shape, dtype, kern_dtype=torch.float32):
     return vol, kern
 
 
-# (b, d, h, w, c). The first three run with fp32 and bf16 volumes; the rest
-# are bf16 shapes the sm90 gate admits, ragged against its 8 x 16 tile
+# (b, d, h, w, c). The first three run with fp32 and bf16 volumes (the fp32
+# and the bf16 sm90 kernel); the rest are bf16 shapes the sm90 gate admits,
+# ragged against its 8 x 16 tile
 # (h, w not multiples of it), C in {16, 32}, D in {8, 16, 64}, then the
 # volumes of a fine-tune's val frame (288x576) and of a KITTI frame.
 HEAD_SHAPES = [(1, 8, 16, 24, 32), (2, 16, 20, 40, 16), (1, 64, 32, 64, 32)]
@@ -96,16 +100,17 @@ SM90_SHAPES = [(1, 8, 5, 8, 16), (1, 16, 13, 56, 16), (2, 8, 19, 72, 32), (1, 64
 )
 def test_fused_head(dev, shape, dtype):
     """The routing wrapper: bf16 volumes the sm90 gate admits launch the sm90
-    kernel, fp32 volumes the first design; exactly one counter moves."""
+    kernel, fp32 volumes the fp32 sm90 kernel; exactly one counter moves."""
     b, d, h, w, c = shape
     vol, kern = _head_case(dev, shape, dtype)
     route = fused_head_route(c, d, w, 3 * d, dtype)
-    assert route == ("sm90" if dtype == torch.bfloat16 else "simt")
-    n = conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches
+    assert route == ("sm90" if dtype == torch.bfloat16 else "sm90_f32")
+    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32)
+    n = [f.launches for f in counters]
     got = conv_soft_argmin_cuda(vol, kern, 3 * d)
     torch.cuda.synchronize()
-    moved = (conv_soft_argmin_simt.launches - n[0], conv_soft_argmin_sm90.launches - n[1])
-    assert moved == ((0, 1) if route == "sm90" else (1, 0))
+    moved = tuple(f.launches - k for f, k in zip(counters, n))
+    assert moved == ((0, 1, 0) if route == "sm90" else (0, 0, 1))
     # bf16 volumes: the plain version sees the same bf16 values, upcast.
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
     assert (got.double() - ref).abs().max().item() < TOL_PX
@@ -123,6 +128,81 @@ def test_fused_head_refused_by_sm90_runs_first_design(dev, shape):
     assert (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches) == (n[0] + 1, n[1])
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
     assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+def _head_kind(dev, shape, kind, seed=0):
+    """fp32 volume and kernel as ``chip_smoke.py``'s ``head_inputs`` makes
+    them: "peaky" (channel 0 a trained-like cost the kernel's centre tap
+    passes), "wide" (its kernel 10x) or "diffuse"."""
+    b, d, h, w, c = shape
+    rng = np.random.RandomState(seed)
+    vol = (0.5 * rng.randn(b, c, d, h, w)).astype(np.float32)
+    if kind == "diffuse":
+        kern = 0.2 * rng.randn(1, c, 3, 3, 3)
+    else:
+        vol[:, 0] = _peaky_cost(b, d, h, w, seed + 1)
+        kern = 0.02 * rng.randn(1, c, 3, 3, 3)
+        kern[0, 0, 1, 1, 1] += 1.0
+        kern *= 10.0 if kind == "wide" else 1.0
+    return torch.from_numpy(vol).to(dev), torch.from_numpy(kern.astype(np.float32)).to(dev)
+
+
+# (b, d, h, w, c) of the fp32 sm90 kernel: C in {16, 32, 64}, B = 2, D = 16
+# and 64, ragged h and w = 4 (mod 8) (a bf16 volume's w must be a multiple of
+# 8); one stage in half an SM (C = 32, D = 64: two blocks an SM), two stages
+# (C = 16, D = 16), two in a whole SM (C = 64, D = 64; C = 32, D = 136), one
+# in a whole SM (C = 64, D = 136); the volumes of a fine-tune's val frame and
+# of a KITTI frame.
+F32_SHAPES = [(2, 16, 13, 44, 16), (2, 64, 19, 36, 32), (2, 16, 11, 28, 64), (1, 64, 37, 100, 64),
+              (1, 136, 9, 20, 32), (1, 136, 9, 20, 64), (1, 64, 96, 192, 32), (1, 64, 128, 416, 32)]
+
+
+@pytest.mark.parametrize("kind", ["peaky", "wide", "diffuse"])
+@pytest.mark.parametrize("shape", F32_SHAPES)
+def test_fused_head_sm90_f32(dev, shape, kind):
+    """The fp32 sm90 kernel (3xTF32 contraction) against float64, with the
+    TF32 flags of cuDNN and cuBLAS on: they must not change its arithmetic."""
+    b, d, h, w, c = shape
+    vol, kern = _head_kind(dev, shape, kind)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    assert fused_head_route(c, d, w, 3 * d, torch.float32) == "sm90_f32"
+    counters = (conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    n = [f.launches for f in counters]
+    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
+    torch.cuda.synchronize()
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
+    assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+def test_fused_head_refused_by_fp32_sm90_runs_first_design(dev):
+    """fp32 with w % 4 != 0: the first design's kernel."""
+    shape = (1, 8, 16, 22, 32)
+    b, d, h, w, c = shape
+    vol, kern = _head_case(dev, shape, torch.float32)
+    assert fused_head_route(c, d, w, 3 * d, torch.float32) == "simt"
+    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90)
+    n = [f.launches for f in counters]
+    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
+    torch.cuda.synchronize()
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
+    assert (got.double() - ref).abs().max().item() < TOL_PX
+
+
+@pytest.mark.parametrize("kern_dtype", [torch.float32, torch.bfloat16])
+def test_fused_head_fp32_kernels_agree(dev, kern_dtype):
+    """On one fp32 volume, the fp32 sm90 kernel and the first design; bf16
+    weights (tf32 values) take the fp32 kernel's two-product contraction."""
+    shape = (1, 16, 24, 48, 32)
+    vol, kern = _head_case(dev, shape, torch.float32, kern_dtype)
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * shape[1])
+    for fn in (conv_soft_argmin_sm90_f32, conv_soft_argmin_simt):
+        n = fn.launches
+        got = fn(vol, kern, 3 * shape[1])
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        assert (got.double() - ref).abs().max().item() < TOL_PX
 
 
 @pytest.mark.parametrize("kern_dtype", [torch.float32, torch.bfloat16])
@@ -151,6 +231,12 @@ def test_wrappers_raise_instead_of_falling_back(dev):
             torch.zeros(1, 4, 3, 3, 3, device=dev),
             24,
         )
+    # Each sm90 wrapper takes its own volume type only.
+    vol, kern = torch.zeros(1, 16, 8, 16, 16, device=dev), torch.zeros(1, 16, 3, 3, 3, device=dev)
+    with pytest.raises(ValueError, match="bfloat16 volume"):
+        conv_soft_argmin_sm90(vol, kern, 24)
+    with pytest.raises(ValueError, match="float32 volume"):
+        conv_soft_argmin_sm90_f32(vol.bfloat16(), kern, 24)
 
 
 def _kitti_tree(root, names, h=96, w=192):
@@ -173,7 +259,7 @@ def _kitti_tree(root, names, h=96, w=192):
         (lists / f"{split}.list").write_text("".join(f"image_2/{n}\n" for n in names))
 
 
-@pytest.mark.parametrize("dtype,kernel", [("bfloat16", conv_soft_argmin_sm90), ("float32", conv_soft_argmin_simt)])
+@pytest.mark.parametrize("dtype,kernel", [("bfloat16", conv_soft_argmin_sm90), ("float32", conv_soft_argmin_sm90_f32)])
 def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
     """``cli.predict`` on the card: one launch of the dtype's fused head per
     frame and none of the other heads."""
@@ -181,7 +267,7 @@ def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
 
     names = ["000000_10.png", "000001_10.png"]
     _kitti_tree(tmp_path, names)
-    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, soft_argmin_cuda)
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_simt, soft_argmin_cuda)
     n = [f.launches for f in counters]
     argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
             "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
@@ -196,14 +282,15 @@ def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
 def test_train_driver_launches_band_kernel_per_step(dev, tmp_path):
     """``cli.train`` on the card, bf16: two epochs of one step each on a
     synthetic 96x192 tree; the band kernel launches once per train step, the
-    sm90 head once per val frame, the first fused design never."""
+    sm90 head once per val frame, the fp32 sm90 head and the first fused
+    design never."""
     import json
 
     from leastereo_tpu_torch.cli import train
 
     names = ["000000_10.png", "000001_10.png"]
     _kitti_tree(tmp_path, names)
-    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32)
     n = [f.launches for f in counters]
     argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
             "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
@@ -211,7 +298,7 @@ def test_train_driver_launches_band_kernel_per_step(dev, tmp_path):
             "--run_root", str(tmp_path / "run"), "--experiment", "card"]
     assert train.main(argv) == 0
     steps, val_frames = 2, 2 * len(names)
-    assert [f.launches - k for f, k in zip(counters, n)] == [steps, val_frames, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [steps, val_frames, 0, 0]
     exp = tmp_path / "run" / "kitti15_part-train" / "card"
     lines = [json.loads(line) for line in (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert np.isfinite([line["loss"] for line in lines if "loss" in line]).all()
@@ -223,7 +310,7 @@ def test_model_raises_on_refused_cost(dev):
     kernel, which refuses the CUDA cost; the model raises, launching nothing."""
     model = best_sceneflow_model(LEAStereoConfig(maxdisp=50, compute_dtype="float32"), device=dev)
     x = torch.from_numpy(np.random.RandomState(0).randn(1, 48, 96, 3).astype(np.float32)).to(dev)
-    counters = (soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90)
+    counters = (soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32)
     n = [f.launches for f in counters]
     with torch.no_grad(), pytest.raises(ValueError, match="band kernel refuses"):
         model(x, x)
@@ -234,8 +321,8 @@ def test_model_raises_on_refused_cost(dev):
 def test_ops_pass_opcheck_on_card(dev, dtype):
     """Both heads as custom ops on CUDA tensors: schema, autograd
     registration, fake tensors and AOT dispatch (the bf16 volume routes to
-    the sm90 kernel, fp32 to the first design; the band kernel takes a bf16
-    cost as its fp32 copy)."""
+    the sm90 kernel, fp32 to the fp32 sm90 kernel; the band kernel takes a
+    bf16 cost as its fp32 copy)."""
     gen = torch.Generator(device=dev).manual_seed(0)
     vol = torch.randn(1, 16, 8, 8, 16, generator=gen, device=dev).to(dtype).requires_grad_(True)
     kern = (0.2 * torch.randn(1, 16, 3, 3, 3, generator=gen, device=dev)).requires_grad_(True)
@@ -266,11 +353,11 @@ def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
     rng = np.random.RandomState(0)
     frames = [tuple(torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
               for _ in range(2)]
-    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, soft_argmin_cuda)
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32, soft_argmin_cuda)
     n = [f.launches for f in counters]
     with torch.inference_mode():
         got = [prog(left, right) for left, right in frames]
-    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0, 0]
     with torch.inference_mode():
         for g, (left, right) in zip(got, frames):
             assert g.shape == (1, 384, 1248)
@@ -296,12 +383,12 @@ def test_search_steps_launch_band_kernel_once(dev):
     from leastereo_tpu_torch.search import arch_step, weight_step
 
     model, opt_w, opt_a, batch = _search_setup(dev, remat=True)
-    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32)
     n = [f.launches for f in counters]
     m = weight_step(model, opt_w, batch, 48, 0.025)
-    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0, 0]
     arch_step(model, opt_a, batch, 48)
-    assert [f.launches - k for f, k in zip(counters, n)] == [2, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [2, 0, 0, 0]
     assert np.isfinite(m["loss"])
 
 

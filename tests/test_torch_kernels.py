@@ -3,9 +3,10 @@ fused_softargmin.py) against the JAX Pallas kernels they replace.
 
 On the CPU the wrappers run their plain versions; those are held against
 ``conv_soft_argmin_pallas`` / ``soft_argmin_pallas`` in interpret mode, on the
-same numpy-seeded inputs. The sm90 fused head's decomposition (tensor-core
+same numpy-seeded inputs. The sm90 fused heads' decomposition (tensor-core
 channel contraction per voxel, then the 27-tap sum at clamped tile sites) is
-replayed here in plain torch, tile by tile, and held against the same JAX
+replayed here in plain torch, tile by tile, for the bf16 kernel's weight
+split and the fp32 kernel's 3xTF32 split, and held against the same JAX
 kernel. The CUDA kernels themselves are held against the plain versions on
 the card by ``tests/test_torch_cuda.py``.
 """
@@ -25,10 +26,12 @@ from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_reference,
     conv_soft_argmin_simt,
     conv_soft_argmin_sm90,
+    conv_soft_argmin_sm90_f32,
     fused_head_gate_reason,
     fused_head_route,
     fused_head_sm90_gate_reason,
 )
+from leastereo_tpu_torch.ops import _build
 from leastereo_tpu_torch.ops.fused_softargmin import (
     band_gate_reason,
     soft_argmin_cuda,
@@ -113,10 +116,10 @@ def test_cpu_wrappers_take_plain_versions():
     x, k = _head_inputs(b, d, h, w, c, seed=3)
     vol, kern = _to_port(x, k)
     cost = torch.from_numpy(_peaky_cost(b, d, h, w, seed=3))
-    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, soft_argmin_cuda)
+    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, soft_argmin_cuda)
     before = [f.launches for f in counters]
     ref = conv_soft_argmin_reference(vol, kern, 3 * d)
-    for fn in (conv_soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90):
+    for fn in (conv_soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32):
         assert torch.equal(fn(vol, kern, 3 * d), ref)
         # A bf16 volume the sm90 gate admits takes the plain version too.
         assert torch.equal(fn(vol.bfloat16(), kern, 3 * d), conv_soft_argmin_reference(vol.bfloat16(), kern, 3 * d))
@@ -160,9 +163,11 @@ def test_gates():
     assert band_gate_reason(569, 1707) is None
     assert "shared memory" in band_gate_reason(570, 1710)
     assert "maxdisp" in band_gate_reason(64, 191)
-    # The sm90 kernel: bf16, C a multiple of 16 up to 64, w a multiple of 8.
+    # The sm90 kernels: bf16 or fp32, C a multiple of 16 up to 64, w a
+    # multiple of 8 (bf16; fp32: of 4, test_sm90_f32_gate_and_route).
     assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.bfloat16) is None
-    assert "dtype" in fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float32)
+    assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float32) is None
+    assert "dtype" in fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float16)
     assert "C=24" in fused_head_sm90_gate_reason(24, 64, 416, 192, torch.bfloat16)
     assert "C=80" in fused_head_sm90_gate_reason(80, 8, 416, 24, torch.bfloat16)
     assert "w=412" in fused_head_sm90_gate_reason(32, 64, 412, 192, torch.bfloat16)
@@ -170,13 +175,16 @@ def test_gates():
     # Its smaller tile takes Middlebury's D = 136 at bf16, which the first design refuses.
     assert fused_head_sm90_gate_reason(32, 136, 504, 408, torch.bfloat16) is None
     assert "shared memory" in fused_head_sm90_gate_reason(32, 300, 504, 900, torch.bfloat16)
-    # Routing: KITTI bf16 -> sm90; fp32 and the shapes sm90 refuses -> the first design.
+    # Routing: KITTI bf16 -> sm90, fp32 -> the fp32 sm90 kernel; the shapes
+    # both refuse -> the first design.
     assert fused_head_route(32, 64, 416, 192, torch.bfloat16) == "sm90"
-    assert fused_head_route(32, 64, 416, 192, torch.float32) == "simt"
+    assert fused_head_route(32, 64, 416, 192, torch.float32) == "sm90_f32"
     assert fused_head_route(24, 64, 416, 192, torch.bfloat16) == "simt"
     assert fused_head_route(32, 64, 412, 192, torch.bfloat16) == "simt"
     assert fused_head_route(32, 136, 504, 408, torch.bfloat16) == "sm90"
-    assert fused_head_route(32, 136, 504, 408, torch.float32) is None
+    # Middlebury fp32: the first design refuses it, the fp32 kernel's
+    # three-stage ring fits.
+    assert fused_head_route(32, 136, 504, 408, torch.float32) == "sm90_f32"
     assert fused_head_route(32, 64, 416, 190, torch.bfloat16) is None
 
 
@@ -205,23 +213,49 @@ def _bf16_parts(w: torch.Tensor, n: int) -> list[torch.Tensor]:
     return parts
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> tf32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away
+    from zero; the low 13 mantissa bits zero), returned in fp32."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_parts(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The fp32 sm90 kernel's split of a voxel or weight: big = tf32(x),
+    small = tf32(x - big)."""
+    big = _tf32(x)
+    return big, _tf32(x - big)
+
+
+def _sm90_products(vol: torch.Tensor, kern: torch.Tensor) -> list:
+    """(volume part, weight part (C, 27)) of each tensor-core product the
+    sm90 kernel of ``vol``'s dtype accumulates: bf16 (the volume as given,
+    rounded by the caller), the three bf16 weight parts; fp32, 3xTF32
+    small(V) big(W), big(V) small(W), big(V) big(W)."""
+    w = kern.reshape(kern.shape[1], 27)
+    if vol.dtype == torch.bfloat16:
+        return [(vol.float(), part) for part in _bf16_parts(w, 3)]
+    (vb, vs), (wb, ws) = _tf32_parts(vol), _tf32_parts(w)
+    return [(vs, wb), (vb, ws), (vb, wb)]
+
+
 def _sm90_cost_tiles(vol: torch.Tensor, kern: torch.Tensor) -> dict:
     """The sm90 kernel's cost tiles [D][TH+2][TW+2], in plain fp32 torch: per
-    block, P[voxel, tap] = V . (W0 + W1 + W2) over channels (the tensor-core
-    contraction, one product per bf16 weight part), then at each tile site the
-    9 (kh, kw) taps of each kd, summed at its clamped in-frame site, added into
+    block, P[voxel, tap] = sum of the products of :func:`_sm90_products` over
+    channels (the tensor-core contraction), then at each tile site the 9
+    (kh, kw) taps of each kd, summed at its clamped in-frame site, added into
     cost plane d_in - kd + 1."""
     th, tw, sr, sw = SM90_TH, SM90_TW, SM90_TH + 4, SM90_TW + 4
     b, c, d, h, w = vol.shape
-    parts = _bf16_parts(kern.reshape(c, 27), 3)
     pad = (8, 32, 2, sr)  # zero fill: what TMA reads outside the frame
-    vpad = F.pad(vol, pad)
+    products = [(F.pad(v, pad), part) for v, part in _sm90_products(vol, kern)]
     tiles = {}
     for bi in range(b):
         for i0 in range(0, h, th):
             for j0 in range(-SM90_SHIFT, w, tw):
-                box = vpad[bi, :, :, i0 - 2 + pad[2] : i0 - 2 + pad[2] + sr, j0 - 2 + pad[0] : j0 - 2 + pad[0] + sw]
-                p = sum(torch.einsum("cdyx,ct->dtyx", box, part) for part in parts).reshape(d, 27, sr * sw)
+                rows = slice(i0 - 2 + pad[2], i0 - 2 + pad[2] + sr)
+                cols = slice(j0 - 2 + pad[0], j0 - 2 + pad[0] + sw)
+                p = sum(torch.einsum("cdyx,ct->dtyx", v[bi, :, :, rows, cols], part) for v, part in products)
+                p = p.reshape(d, 27, sr * sw)
                 gi = (i0 - 1 + torch.arange(th + 2)).clamp(0, h - 1) - (i0 - 2)
                 gj = (j0 - 1 + torch.arange(tw + 2)).clamp(0, w - 1) - (j0 - 2)
                 pc = ((gi[:, None] - 1) * sw + (gj[None, :] - 1)).reshape(-1)
@@ -236,6 +270,23 @@ def _sm90_cost_tiles(vol: torch.Tensor, kern: torch.Tensor) -> dict:
     return tiles
 
 
+def _sm90_replay(vol: torch.Tensor, kern: torch.Tensor, maxdisp: int) -> torch.Tensor:
+    """The sm90 kernel's output replayed from :func:`_sm90_cost_tiles`: each
+    tile's interior written into the cost, whose halo and out-of-frame
+    sites must hold the cost of the clamped site, then the softmin."""
+    b, _, d, h, w = vol.shape
+    tiles = _sm90_cost_tiles(vol, kern)
+    cost = torch.empty(b, d, h, w)
+    for (bi, i0, j0), t in tiles.items():
+        lo = max(j0, 0)
+        cost[bi, :, i0 : i0 + SM90_TH, lo : j0 + SM90_TW] = t[:, 1 : 1 + min(SM90_TH, h - i0), 1 + lo - j0 : 1 + min(SM90_TW, w - j0)]
+    for (bi, i0, j0), t in tiles.items():
+        ri = (i0 - 1 + torch.arange(SM90_TH + 2)).clamp(0, h - 1)
+        rj = (j0 - 1 + torch.arange(SM90_TW + 2)).clamp(0, w - 1)
+        torch.testing.assert_close(t, cost[bi][:, ri][:, :, rj], atol=1e-5, rtol=1e-5)
+    return soft_argmin(cost, maxdisp)
+
+
 @pytest.mark.parametrize("shape", HEAD_SHAPES)
 def test_sm90_arithmetic_matches_pallas(shape):
     b, d, h, w, c, g = shape
@@ -243,18 +294,20 @@ def test_sm90_arithmetic_matches_pallas(shape):
     x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # the kernel reads a bf16 volume
     ref = np.asarray(conv_soft_argmin_pallas(pack(jnp.asarray(x), g).data, jnp.asarray(k), g, c, 3 * d, True))
     vol, kern = _to_port(x, k)
-    tiles = _sm90_cost_tiles(vol, kern)
-    cost = torch.empty(b, d, h, w)
-    for (bi, i0, j0), t in tiles.items():
-        lo = max(j0, 0)
-        cost[bi, :, i0 : i0 + SM90_TH, lo : j0 + SM90_TW] = t[:, 1 : 1 + min(SM90_TH, h - i0), 1 + lo - j0 : 1 + min(SM90_TW, w - j0)]
-    # Each tile's halo and out-of-frame sites hold the cost of the clamped site.
-    for (bi, i0, j0), t in tiles.items():
-        ri = (i0 - 1 + torch.arange(SM90_TH + 2)).clamp(0, h - 1)
-        rj = (j0 - 1 + torch.arange(SM90_TW + 2)).clamp(0, w - 1)
-        torch.testing.assert_close(t, cost[bi][:, ri][:, :, rj], atol=1e-5, rtol=1e-5)
-    got = soft_argmin(cost, 3 * d).numpy()
+    got = _sm90_replay(vol.bfloat16(), kern, 3 * d).numpy()
     # fp32 on both sides, the conv summed in another order: 2e-3 px.
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_sm90_f32_arithmetic_matches_pallas(shape):
+    """The fp32 kernel's decomposition with its 3xTF32 contraction, on an
+    fp32 volume, against the JAX kernel in fp32."""
+    b, d, h, w, c, g = shape
+    x, k = _head_inputs(b, d, h, w, c, seed=8)
+    ref = np.asarray(conv_soft_argmin_pallas(pack(jnp.asarray(x), g).data, jnp.asarray(k), g, c, 3 * d, True))
+    vol, kern = _to_port(x, k)
+    got = _sm90_replay(vol, kern, 3 * d).numpy()
     np.testing.assert_allclose(got, ref, atol=2e-3)
 
 
@@ -267,6 +320,96 @@ def test_weight_split_keeps_fp32_weights():
     assert torch.equal(sum(_bf16_parts(w, 3)), w)
     # bf16 weights (the main path's) have zero second and third parts.
     assert all(torch.equal(p, torch.zeros_like(p)) for p in _bf16_parts(w.bfloat16().float(), 3)[1:])
+
+
+def test_tf32_split_keeps_fp32_values():
+    rng = np.random.RandomState(9)
+    x = torch.from_numpy((rng.randn(4096) * np.exp(rng.uniform(-8, 4, 4096))).astype(np.float32))
+    big, small = _tf32_parts(x)
+    # Both parts are tf32 values: 10 explicit mantissa bits, the low 13 zero.
+    for part in (big, small):
+        assert ((part.view(torch.int32) & 0x1FFF) == 0).all()
+    # big is x rounded to nearest (half an ulp of 11 bits), x - big is exact,
+    # and big + small keeps x to 2^-22.
+    assert ((x - big).abs() <= 2.0**-11 * x.abs()).all()
+    assert ((big + small - x).abs() <= 2.0**-22 * x.abs()).all()
+    # Ties go away from zero, as cvt.rna does: 1 + 2^-11 lies halfway.
+    tie = torch.tensor([1.0 + 2.0**-11, -(1.0 + 2.0**-11)])
+    assert torch.equal(_tf32(tie), torch.tensor([1.0 + 2.0**-10, -(1.0 + 2.0**-10)]))
+
+
+# The fp32 sm90 head's gate and route, the ring depth and the shared memory
+# by csrc/fused_head_sm90.cu's layout: a stage of 4 C 20 (8 + 4) B plus two
+# 8 B mbarriers (one a channel half); P 4 x 27 x 244 = 26,352 B; the cost tile 4 D 10 x 18 B; up to
+# two stages, as many as fit in 115,712 B (two blocks an SM) for C <= 32 when
+# one does, else in 232,448 B. (C, D, w, maxdisp), expected stages, bytes,
+# route, and the refusal's words.
+F32_GATE_CASES = {
+    "kitti_416x128": ((32, 64, 416, 192), 1, 30736 + 26352 + 46080, "sm90_f32", None),
+    "finetune_val_192": ((32, 64, 192, 192), 1, 30736 + 26352 + 46080, "sm90_f32", None),
+    "export_96x192": ((32, 16, 64, 48), 2, 2 * 30736 + 26352 + 11520, "sm90_f32", None),
+    "middlebury_d136": ((32, 136, 504, 408), 2, 2 * 30736 + 26352 + 97920, "sm90_f32", None),
+    "w_not_multiple_of_4": ((32, 64, 414, 192), 1, 30736 + 26352 + 46080, "simt", "w=414 is not a multiple of 4"),
+    "c16": ((16, 64, 416, 192), 2, 2 * 15376 + 26352 + 46080, "sm90_f32", None),
+    "c24": ((24, 64, 416, 192), 1, None, "simt", "C=24"),
+    "c64": ((64, 64, 416, 192), 2, 2 * 61456 + 26352 + 46080, "sm90_f32", None),
+    "c64_d136": ((64, 136, 504, 408), 1, 61456 + 26352 + 97920, "sm90_f32", None),
+    "c32_d569": ((32, 569, 504, 1707), 0, 30736 + 26352 + 409680, None, "shared memory"),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_GATE_CASES))
+def test_sm90_f32_gate_and_route(case):
+    (c, d, w, maxdisp), stages, smem, route, refusal = F32_GATE_CASES[case]
+    assert _build.head_sm90_f32_stages(c, d) == stages
+    if smem is not None:
+        assert _build.head_sm90_f32_smem_bytes(c, d) == smem
+        assert (smem <= _build.SMEM_LIMIT) == (stages >= 1)
+        # Two blocks an SM exactly where the layout fits in half an SM.
+        assert (smem <= _build.SMEM_PAIR_LIMIT) == (c <= 32 and d <= 64)
+    reason = fused_head_sm90_gate_reason(c, d, w, maxdisp, torch.float32)
+    assert (reason is None) == (refusal is None), reason
+    if refusal is not None:
+        assert refusal in reason
+    assert fused_head_route(c, d, w, maxdisp, torch.float32) == route
+    # The bf16 kernel's gate and layout are its own (w % 8, two bf16 stages).
+    assert _build.head_sm90_smem_bytes(32, 64) == 2 * (2 * 32 * 312 + 8) + 26352 + 46080
+
+
+def _head_inputs_kind(kind, b, c, d, h, w, seed=0):
+    """chip_smoke.py's ``head_inputs`` in numpy: "peaky" (channel 0 a
+    trained-like cost the kernel's centre tap passes), "wide" (its kernel
+    10x) or "diffuse" (random volume and kernel)."""
+    rng = np.random.RandomState(seed)
+    vol = (0.5 * rng.randn(b, c, d, h, w)).astype(np.float32)
+    if kind == "diffuse":
+        kern = 0.2 * rng.randn(1, c, 3, 3, 3)
+    else:
+        vol[:, 0] = _peaky_cost(b, d, h, w, seed=seed + 1)
+        kern = 0.02 * rng.randn(1, c, 3, 3, 3)
+        kern[0, 0, 1, 1, 1] += 1.0
+        kern *= 10.0 if kind == "wide" else 1.0
+    return torch.from_numpy(vol), torch.from_numpy(kern.astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["peaky", "wide", "diffuse"])
+def test_sm90_f32_split_numerics_hold_fp32(kind):
+    """The fp32 kernel's 3xTF32 arithmetic, emulated with parts rounded bit
+    for bit (products of tf32 values are exact in fp32), through the plain
+    head at 48x96, maxdisp 48, C = 32: within 2e-3 px of float64. One tf32
+    part alone (the single-pass TF32 contraction, as cuDNN's TF32 would run
+    it) misses that on the wide and diffuse inputs: the split is needed."""
+    vol, kern = _head_inputs_kind(kind, 1, 32, 16, 16, 32, seed=10)
+    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 48)
+    (vb, vs), (wb, ws) = _tf32_parts(vol), _tf32_parts(kern)
+
+    def head(pairs):
+        cost = sum(F.conv3d(v, k, padding=1) for v, k in pairs)[:, 0]
+        return (soft_argmin(cost, 48).double() - ref).abs().max().item()
+
+    assert head([(vs, wb), (vb, ws), (vb, wb)]) < 2e-3
+    if kind != "peaky":
+        assert head([(vb, wb)]) > 2e-3
 
 
 # Geometry of the shared stage (csrc/heads_common.cuh) in each kernel that
