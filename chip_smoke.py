@@ -92,6 +92,23 @@ caught, so any failure exits non-zero):
    frame ms, the run's peak memory and the phase's seconds, and from one
    profiled weight step the device time by kernel kind, the kernels
    launched and the device's idle share.
+12. parallel: (a) the disparity-sharded KITTI frame (384x1248, full width)
+   on two processes of the one card over gloo with CUDA tensors, in fp32
+   (TF32 off) at maxdisp 192 and 408, each within 1e-3 px of the
+   one-process frame with the plain head, and no further from the same
+   model's float64 frame than the one-process fp32 frame is (plus 1e-3
+   px), then in bf16 (finite; ms a frame,
+   the collectives' ms a frame, each rank's peak memory), with no head
+   kernel launched (counts zeroed just before, read just after); (b) three
+   data-parallel SGD steps of the fine-tune shapes (288x576, global batch
+   4, fp32, TF32 off) on the two ranks against one process on the same
+   global batches (step 1's loss to 1e-4; gradients and later losses within
+   2x the fp32 noise floor that the same run with its rows reordered
+   shows), the band kernel once per step on each rank; (c) ``cli.train
+   --multihost`` at world size 1 over NCCL (NCCL refuses two ranks on one
+   device, so this is all of NCCL one card can show): 3 steps, the band
+   kernel once per step, the sm90 head once per val frame, the checkpoint
+   written. The phase starts its ranks as ``chip_smoke.py --rank ...``.
 
 Then the kernel table, the card line and, last, the result line. Exits
 non-zero without printing a result when no CUDA card is present.
@@ -867,6 +884,352 @@ def search_phase(counters: dict, card: str) -> dict:
             "step_device_ms": busy_ms, "step_idle_share": prof_line["device_idle_share"]}
 
 
+# Phase 12, parallel runs. The card machine has one H100 and NCCL refuses two
+# ranks on one device, so parity across ranks runs over gloo with CUDA tensors
+# (two processes on the card) and NCCL at world size 1. (a) The disparity-
+# sharded KITTI frame against the one-process frame with the plain head (the
+# maths the sharded head shares), fp32, TF32 off; (b) three data-parallel
+# steps at the fine-tune shapes against one process on the same global batches.
+PAR_RANKS = 2
+PAR_MAXDISPS = (192, 408)
+TOL_PAR_PX = 1e-3
+PAR_STEPS = 3
+# (b) SGD (momentum 0.9, lr 1e-3), whose update is linear in the gradient:
+# Adam's first updates are near sign(g), and a gradient within rounding of 0
+# flips sign between any two summation orders (a first call measured the
+# one-process Adam run against itself with its rows reordered 2.2e-4 apart in
+# step 3's loss). Bounds: step 1's loss within 1e-4 relative; the gradients of
+# a train-mode BN net are chaotically conditioned in fp32 (see
+# tests/test_torch_parallel.py), so step 1's gradient and every step's loss
+# must stay within 2x of the deviation that the one-process run with the rows
+# of each global batch reordered (equal in exact arithmetic) shows from the
+# one-process run, plus 1e-6 on the gradient's relative L2 and 1e-5 relative
+# on each loss.
+TOL_PAR_LOSS = 1e-4
+PAR_NOISE_FACTOR = 2.0
+PAR_LR = 1e-3
+
+
+@contextlib.contextmanager
+def collective_clock(stats: dict):
+    """While the block runs, time every ``torch.distributed.all_reduce`` (the
+    exchange, sync-BN, gradients and metrics all call it) with the card
+    synchronised on either side: ``stats["ms"]``, ``stats["calls"]``."""
+    import torch.distributed as dist
+
+    orig = dist.all_reduce
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig(*args, **kwargs)
+        torch.cuda.synchronize()
+        stats["ms"] += 1e3 * (time.perf_counter() - t0)
+        stats["calls"] += 1
+        return out
+
+    dist.all_reduce = timed
+    try:
+        yield stats
+    finally:
+        dist.all_reduce = orig
+
+
+def _par_rows(batch: dict, rank: int, world: int, order=None) -> dict:
+    """Rank ``rank``'s rows of a global batch (all rows with ``world`` 1), as
+    float32 tensors on the card, in ``order`` when given."""
+    n = batch["left"].shape[0] // world
+    out = {}
+    for k, v in batch.items():
+        v = v if order is None else v[order]
+        out[k] = torch.from_numpy(np.ascontiguousarray(v[rank * n : (rank + 1) * n])).cuda()
+    return out
+
+
+def par_train_run(sd: dict, batches: list, order, lr: float, mesh=None, rank: int = 0, world: int = 1):
+    """``PAR_STEPS`` SGD steps (fp32) on this rank's rows of ``batches``:
+    the losses, step 1's flat gradient, the band kernel's launches, and with
+    a mesh the collectives' ms and calls of the last step."""
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+    from leastereo_tpu_torch.train import make_optimizer, train_step
+
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"))
+    model.load_state_dict(sd)
+    opt = make_optimizer(model.parameters(), "sgd", lr, momentum=0.9)
+    losses, grad1, clock = [], None, {"ms": 0.0, "calls": 0}
+    soft_argmin_cuda.launches = 0
+    step_ms = []
+    for i, batch in enumerate(batches):
+        rows = _par_rows(batch, rank, world, order)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with collective_clock(clock) if (mesh is not None and i == len(batches) - 1) else contextlib.nullcontext():
+            losses.append(train_step(model, opt, rows, 192, lr, mesh=mesh)["loss"])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if i == 0:
+            grad1 = torch.cat([p.grad.detach().double().flatten() for p in model.parameters()]).cpu()
+    return {"losses": losses, "grad1": grad1, "band_launches": soft_argmin_cuda.launches, "step_ms": step_ms,
+            "collective_ms_last_step": clock["ms"], "collective_calls_last_step": clock["calls"],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def rank_main(argv: list) -> int:
+    """One rank of phase 12, run as ``chip_smoke.py --rank RANK WORLD PORT DIR``:
+    the sharded frames of (a), then the data-parallel steps of (b), on card 0
+    over gloo. Writes ``DIR/out{RANK}.pt``."""
+    rank, world, port, work = int(argv[0]), int(argv[1]), argv[2], pathlib.Path(argv[3])
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+    from leastereo_tpu_torch.parallel import initialize, make_mesh
+
+    heads = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
+             "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
+    initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda")
+    inp = torch.load(work / "in.pt", weights_only=False)
+    left, right = (torch.from_numpy(inp[k]).cuda() for k in ("left", "right"))
+    mesh = make_mesh(data=1, disp=world)
+    out = {}
+    # (a) fp32 sharded frames; then bf16: frame ms, one frame with the
+    # collectives clocked, this rank's peak memory.
+    for md in PAR_MAXDISPS:
+        model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32",
+                                                     cost_volume_pspec=("data", "disp")))
+        model.load_state_dict(inp[f"sd{md}"])
+        model.mesh = mesh
+        torch.cuda.reset_peak_memory_stats()
+        for fn in heads.values():
+            fn.launches = 0
+        with torch.inference_mode():
+            disp = model(left, right)
+            torch.cuda.synchronize()
+        out[f"fp32_{md}"] = disp.cpu()
+        out[f"fp32_{md}_launches"] = {k: fn.launches for k, fn in heads.items()}
+        out[f"fp32_{md}_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="bfloat16",
+                                                 cost_volume_pspec=("data", "disp")))
+    model.load_state_dict(inp["sd192"])
+    model.mesh = mesh
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in heads.values():
+        fn.launches = 0
+    with torch.inference_mode():
+        for _ in range(2):
+            disp = model(left, right)
+        torch.cuda.synchronize()
+        t0, n = time.perf_counter(), 5
+        for _ in range(n):
+            disp = model(left, right)
+        torch.cuda.synchronize()
+        out["bf16_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / n
+        with collective_clock({"ms": 0.0, "calls": 0}) as clock:
+            disp = model(left, right)
+    out["bf16_frames"] = 2 + n + 1
+    out["bf16_launches"] = {k: fn.launches for k, fn in heads.items()}
+    out["bf16_exchange_ms_per_frame"], out["bf16_exchange_calls_per_frame"] = clock["ms"], clock["calls"]
+    out["bf16_finite"] = bool(torch.isfinite(disp).all())
+    out["bf16_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # (b) the data-parallel steps over the data axis.
+    out["train"] = par_train_run(inp["sd_train"], inp["batches"], None, inp["lr"],
+                                 make_mesh(data=world, disp=1), rank, world)
+    torch.save(out, work / f"out{rank}.pt")
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_phase(counters: dict, card: str) -> dict:
+    """Phase 12: (a) the disparity-sharded KITTI frame and (b) data-parallel
+    steps on two gloo ranks of the card, each held against one process;
+    (c) ``cli.train --multihost`` at world size 1 over NCCL."""
+    import socket
+
+    from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+    from leastereo_tpu_torch.cli import train as train_cli
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False  # phase 10 turned it on
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, W = 384, 1248
+    rng = np.random.RandomState(12)
+    left_np = rng.randn(1, H, W, 3).astype(np.float32)
+    right_np = rng.randn(1, H, W, 3).astype(np.float32)
+    left, right = torch.from_numpy(left_np).cuda(), torch.from_numpy(right_np).cuda()
+    inp = {"left": left_np, "right": right_np, "lr": PAR_LR}
+    # (a) references: the one-process fp32 frame with the plain head, and the
+    # same model in float64 (how far fp32 rounding alone moves the frame).
+    ref, ref64 = {}, {}
+    for md in PAR_MAXDISPS:
+        model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32", pallas_head=False), seed=md)
+        calibrate_head(model, left, right)
+        model64 = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float64", pallas_head=False))
+        model64.load_state_dict(model.state_dict())
+        with torch.inference_mode():
+            ref[md] = model(left, right).cpu()
+            ref64[md] = model64(left.double(), right.double()).cpu()
+        inp[f"sd{md}"] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model, model64
+    torch.cuda.empty_cache()
+    # (b) references: PAR_STEPS global batches of the fine-tune shapes; rank
+    # 1's rows hold fewer valid pixels than rank 0's.
+    batches = []
+    for _ in range(PAR_STEPS):
+        target = rng.uniform(0.5, 150.0, size=(TRAIN_B, TRAIN_H, TRAIN_W)).astype(np.float32)
+        target[TRAIN_B // 2 :, : TRAIN_H // 2] = 0.0
+        batches.append({"left": rng.randn(TRAIN_B, TRAIN_H, TRAIN_W, 3).astype(np.float32),
+                        "right": rng.randn(TRAIN_B, TRAIN_H, TRAIN_W, 3).astype(np.float32), "disparity": target})
+    inp["batches"] = batches
+    train_model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"), seed=12)
+    calibrate_head(train_model, left[:, :TRAIN_H, :TRAIN_W], right[:, :TRAIN_H, :TRAIN_W])
+    inp["sd_train"] = {k: v.cpu() for k, v in train_model.state_dict().items()}
+    del train_model
+    one = par_train_run(inp["sd_train"], batches, None, inp["lr"])
+    reordered = par_train_run(inp["sd_train"], batches, [2, 3, 0, 1], inp["lr"])
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(inp, os.path.join(work, "in.pt"))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, LOCAL_RANK="0")  # both ranks on the one card
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--rank", str(r), str(PAR_RANKS),
+                                   str(port), work], env=env) for r in range(PAR_RANKS)]
+        try:
+            # A rank that fails would leave the other waiting in a collective.
+            while any(p.poll() is None for p in procs) and not any(p.poll() for p in procs):
+                if time.perf_counter() - t0 > 600:
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        ranks_s = time.perf_counter() - t0
+        rcs = [p.returncode for p in procs]
+        if any(rcs):
+            raise AssertionError(f"phase 12 ranks exited {rcs}")
+        outs = [torch.load(os.path.join(work, f"out{r}.pt"), weights_only=False) for r in range(PAR_RANKS)]
+
+    zero = {k: 0 for k in counters}
+    sharded = {"phase": "parallel_sharded_frame", "card": card, "shape": [1, H, W], "ranks": PAR_RANKS,
+               "backend": "gloo (CUDA tensors; both ranks on the one card)", "tol_px": TOL_PAR_PX,
+               "reference": "one process, pallas_head=False, fp32, TF32 off"}
+    ok = True
+    for md in PAR_MAXDISPS:
+        errs = [(o[f"fp32_{md}"] - ref[md]).abs().max().item() for o in outs]
+        errs64 = [(o[f"fp32_{md}"].double() - ref64[md]).abs().max().item() for o in outs]
+        one64 = (ref[md].double() - ref64[md]).abs().max().item()
+        sharded[f"maxdisp_{md}"] = {"max_abs_diff_px": errs, "disp_std": ref[md].std().item(),
+                                    "sharded_vs_float64_px": errs64, "one_process_vs_float64_px": one64,
+                                    "launches": [o[f"fp32_{md}_launches"] for o in outs],
+                                    "peak_gb_per_rank": [o[f"fp32_{md}_peak_gb"] for o in outs]}
+        ok &= all(e <= TOL_PAR_PX for e in errs) and all(o[f"fp32_{md}_launches"] == zero for o in outs)
+        ok &= all(e <= one64 + TOL_PAR_PX for e in errs64)
+    sharded["bf16"] = {"maxdisp": 192, "ms_per_frame": [o["bf16_ms_per_frame"] for o in outs],
+                       "exchange_ms_per_frame": [o["bf16_exchange_ms_per_frame"] for o in outs],
+                       "exchange_calls_per_frame": [o["bf16_exchange_calls_per_frame"] for o in outs],
+                       "peak_gb_per_rank": [o["bf16_peak_gb"] for o in outs],
+                       "frames": outs[0]["bf16_frames"], "launches": [o["bf16_launches"] for o in outs],
+                       "finite": [o["bf16_finite"] for o in outs],
+                       "note": "exchange_ms: every all_reduce of one frame (halos, head), card synchronised around each"}
+    ok &= all(o["bf16_finite"] and o["bf16_launches"] == zero for o in outs)
+    emit(sharded)
+    if not ok:
+        raise AssertionError(f"phase 12a: {sharded}")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    floor_grad = rel(reordered["grad1"], one["grad1"])
+    dp_line = {"phase": "parallel_data_steps", "card": card, "shape": [TRAIN_B, TRAIN_H, TRAIN_W], "steps": PAR_STEPS,
+               "ranks": PAR_RANKS, "dtype": "float32", "tf32": False, "optimizer": f"sgd {PAR_LR}, momentum 0.9",
+               "one_process_losses": one["losses"], "reordered_losses": reordered["losses"],
+               "rank_losses": [o["train"]["losses"] for o in outs],
+               "step1_grad_rel_l2": [rel(o["train"]["grad1"], one["grad1"]) for o in outs],
+               "step1_grad_rel_l2_reordered": floor_grad,
+               "band_launches_per_rank": [o["train"]["band_launches"] for o in outs],
+               "one_process_band_launches": one["band_launches"],
+               "step_ms_per_rank": [o["train"]["step_ms"] for o in outs], "one_process_step_ms": one["step_ms"],
+               "all_reduce_ms_last_step": [o["train"]["collective_ms_last_step"] for o in outs],
+               "all_reduce_calls_last_step": [o["train"]["collective_calls_last_step"] for o in outs],
+               "peak_gb_per_rank": [o["train"]["peak_gb"] for o in outs],
+               "tol": {"step1_loss_rel": TOL_PAR_LOSS, "noise_factor": PAR_NOISE_FACTOR}, "ranks_seconds": ranks_s}
+    ok = all(o["train"]["band_launches"] == PAR_STEPS for o in outs) and one["band_launches"] == PAR_STEPS
+    for o in outs:
+        got = o["train"]["losses"]
+        ok &= abs(got[0] - one["losses"][0]) <= TOL_PAR_LOSS * abs(one["losses"][0])
+        ok &= all(abs(g - w) <= PAR_NOISE_FACTOR * abs(r - w) + 1e-5 * abs(w)
+                  for g, w, r in zip(got, one["losses"], reordered["losses"]))
+        ok &= rel(o["train"]["grad1"], one["grad1"]) <= PAR_NOISE_FACTOR * floor_grad + 1e-6
+    ok &= outs[0]["train"]["losses"] == outs[1]["train"]["losses"]
+    emit(dp_line)
+    if not ok:
+        raise AssertionError(f"phase 12b: {dp_line}")
+
+    # (c) NCCL, world size 1: the only NCCL one card can show. The driver
+    # joins the group from the environment (--multihost); its data axis
+    # reduces over the world, so sync-BN, the gradients and the metrics all
+    # go through NCCL all_reduce.
+    lists_dir = str(REPO / "dataloaders" / "lists")
+    recipe = ["--dataset", "kitti15_part", "--data_root", KITTI_ROOT, "--listset", "kitti15_part",
+              "--lists_dir", lists_dir, "--crop_height", str(TRAIN_H), "--crop_width", str(TRAIN_W),
+              "--batch_size", str(TRAIN_B), "--maxdisp", "192", "--loop_mode", "n_epochs", "--ckpt_period", "0",
+              "--workers", "2", "--device", "cuda", "--multihost", "--epochs", str(PAR_STEPS)]
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env_keys = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0",
+                "LOCAL_RANK": "0"}
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    os.environ.update(env_keys)
+    clock = {"ms": 0.0, "calls": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        for fn in counters.values():
+            fn.launches = 0
+        printed = io.StringIO()
+        try:
+            with collective_clock(clock), contextlib.redirect_stdout(printed):
+                rc = train_cli.main(recipe + ["--run_root", tmp, "--experiment", "nccl"])
+        finally:
+            for k, v in saved_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        launches = {k: fn.launches for k, fn in counters.items()}
+        exp = os.path.join(tmp, "kitti15_part-train", "nccl")
+        final = os.path.exists(os.path.join(exp, "checkpoints", "final", f"{PAR_STEPS}.pth"))
+        with open(os.path.join(exp, "logs", "metrics.jsonl")) as f:
+            log = [json.loads(ln) for ln in f]
+    n_val = len([ln for ln in log if "val_err3" in ln])
+    nccl = {"phase": "parallel_nccl", "card": card, "rc": rc, "backend": "nccl", "world_size": 1,
+            "steps": PAR_STEPS, "val_frames": n_val, "launches": launches, "final_checkpoint": final,
+            "all_reduce_calls": clock["calls"], "all_reduce_ms": clock["ms"],
+            "losses": [ln["loss"] for ln in log if "loss" in ln],
+            "note": "NCCL at world size 1 is the only NCCL one card can show: NCCL refuses two ranks on one device"}
+    emit(nccl)
+    if not (rc == 0 and final and launches["band_soft_argmin"] == PAR_STEPS and n_val == PAR_STEPS
+            and launches["fused_head_sm90"] == n_val and clock["calls"] > 0
+            and all(math.isfinite(x) for x in nccl["losses"])):
+        raise AssertionError(f"phase 12c: {nccl}")
+    emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_phase})
+    return {"sharded_launches": [o["bf16_launches"] for o in outs],
+            "dp_band_launches_per_rank": dp_line["band_launches_per_rank"], "nccl_launches": launches}
+
+
 def frame_ms(fn, inputs, warmup: int = 3) -> list[float]:
     """Device-timeline ms of each call ``fn(l, r)`` over ``inputs`` (CUDA
     events around each frame), after ``warmup`` untimed frames."""
@@ -1421,6 +1784,13 @@ def main() -> int:
     # reference search through cli.search, decode, the decoded network
     search = search_phase(counters, card)
 
+    # ---- 12. parallel runs: the disparity-sharded KITTI frame and data-parallel
+    # steps on two gloo ranks of the card, cli.train over NCCL at world size 1
+    par = parallel_phase(counters, card)
+    par_of = {k: {"parallel_sharded_frame_launches": [l[k] for l in par["sharded_launches"]],
+                  "parallel_nccl_launches": par["nccl_launches"][k]} for k in counters}
+    par_of["band_soft_argmin"]["parallel_dp_launches_per_rank"] = par["dp_band_launches_per_rank"]
+
     # ---- kernel table, card, result
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
@@ -1436,7 +1806,12 @@ def main() -> int:
     # search's weight steps, arch steps and val frames (phase 11, zeroed just
     # before); search_ms, search_plain_ms, search_bound_ms,
     # search_max_abs_err: the band kernel at the search cost (2, 64, 64, 128);
-    # search_decode_launches: the decoded network's KITTI frame (phase 11).
+    # search_decode_launches: the decoded network's KITTI frame (phase 11);
+    # parallel_sharded_frame_launches: each rank's over the disparity-sharded
+    # bf16 KITTI frames (phase 12a, 0: the sharded head is the plain one);
+    # parallel_dp_launches_per_rank: over the 3 data-parallel steps (12b);
+    # parallel_nccl_launches: over cli.train --multihost's 3 steps and val
+    # frames (12c).
     # library_ms is null for the heads: no one PyTorch call computes them;
     # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel).
     emit({"kernels": [
@@ -1447,7 +1822,7 @@ def main() -> int:
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
          "yardstick_ms": unfused_ms, **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"],
-         "search_decode_launches": search["decode_launches"]},
+         "search_decode_launches": search["decode_launches"], **par_of["fused_head_sm90"]},
         {"name": "fused_head_sm90_f32", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": fp32_launches["fused_head_sm90_f32"],
          "launches_per_frame": fp32_launches["fused_head_sm90_f32"] / 1,
@@ -1459,7 +1834,8 @@ def main() -> int:
          **cli_of["fused_head_sm90_f32"], **train_of["fused_head_sm90_f32"],
          "fp32_frame_launches": fp32_frame_launches["fused_head_sm90_f32"], "fp32_frame_frames": 4,
          "fp32_kitti_frame_device_ms": fp32_frame_ms, "fp32_kitti_frame_kernel_ms": fp32_head_frame_ms,
-         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90_f32"]},
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90_f32"],
+         **par_of["fused_head_sm90_f32"]},
         {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
          "launches": first_launches["fused_head"], "launches_per_frame": first_launches["fused_head"] / 1,
          "path": "fp32 forward, 24-channel matching net (phase 6); the bf16 and fp32 shapes both sm90 gates refuse",
@@ -1468,7 +1844,8 @@ def main() -> int:
          "yardstick_ms": unfused_ms, **train_of["fused_head"], "fp32_volume_ms": head_fp32_ms,
          "fp32_volume_plain_ms": head_fp32_plain_ms, "fp32_volume_bound_ms": head_fp32_bound[0],
          "fp32_volume_bound_by": head_fp32_bound[1], "fp32_frame_launches": fp32_frame_launches["fused_head"],
-         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head"]},
+         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head"],
+         **par_of["fused_head"]},
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
          "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",
@@ -1477,7 +1854,7 @@ def main() -> int:
          **cli_of["band_soft_argmin"], **train_of["band_soft_argmin"],
          "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"],
          "search_launches": search["launches"], "search_ms": search["ms"], "search_plain_ms": search["plain_ms"],
-         "search_bound_ms": search["bound_ms"], "search_max_abs_err": search["err"]},
+         "search_bound_ms": search["bound_ms"], "search_max_abs_err": search["err"], **par_of["band_soft_argmin"]},
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1486,4 +1863,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:  # a rank of phase 12, started by the phase itself
+        sys.exit(rank_main(sys.argv[2:]))
     sys.exit(main())

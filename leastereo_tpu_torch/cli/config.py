@@ -3,7 +3,9 @@
 The flags, names and defaults of ``leastereo_tpu/cli/config.py`` (reference
 ``config_utils/*.py``), except that ``--platform {cpu,tpu}`` becomes
 ``--device {cuda,cpu}`` (default ``cuda``). The mesh flags (``--mesh_data``,
-``--mesh_disp``, ``--multihost``) wait for the port's parallel runs.
+``--mesh_disp``, ``--multihost``) are on train, search, predict and
+evaluate; each mesh position is a process (``cli/common.py``
+``spawn_ranks``), not a device of one process as in JAX.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import argparse
 __all__ = [
     "add_model_args",
     "add_data_args",
+    "add_mesh_args",
     "train_parser",
     "search_parser",
     "decode_parser",
@@ -69,10 +72,27 @@ def add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--workers", type=int, default=4)
 
 
+def add_mesh_args(p: argparse.ArgumentParser) -> None:
+    """The JAX package's mesh flags (``leastereo_tpu/cli/config.py:82-92``)."""
+    p.add_argument("--mesh_disp", type=int, default=1,
+                   help="ranks on the disparity (CP) mesh axis: each holds a slab of the cost volume's planes")
+    p.add_argument("--mesh_data", type=int, default=None,
+                   help="ranks on the data mesh axis (default: every rank --mesh_disp leaves; 1 when the "
+                   "driver spawns its own ranks)")
+    p.add_argument(
+        "--multihost",
+        action="store_true",
+        help="take this process's rank from the environment torchrun sets (MASTER_ADDR, MASTER_PORT, "
+        "WORLD_SIZE, RANK, LOCAL_RANK) instead of spawning local ranks; under torchrun it is implied. "
+        "Each rank loads its rows of the global batch (parallel/multihost.py).",
+    )
+
+
 def train_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Retrain / fine-tune a decoded LEAStereo model (reference train.py)")
     add_model_args(p)
     add_data_args(p)
+    add_mesh_args(p)
     p.add_argument(
         "--tensorboard", action="store_true",
         help="also write TensorBoard event files next to metrics.jsonl (reference train.py:100-101)",
@@ -129,6 +149,7 @@ def search_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Bilevel NAS search (reference search.py)")
     add_model_args(p, with_arch_files=False)
     add_data_args(p)
+    add_mesh_args(p)
     p.add_argument(
         "--tensorboard", action="store_true",
         help="also write TensorBoard event files next to metrics.jsonl (reference search.py:57)",
@@ -167,6 +188,7 @@ def predict_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Batch-free inference over a list file (reference predict.py)")
     add_model_args(p)
     add_data_args(p)
+    add_mesh_args(p)
     p.add_argument("--checkpoint", type=str, default="",
                    help="torch state_dict file (.pth; a reference file loads as is); empty: random init")
     p.add_argument("--output_dir", type=str, default="predictions")

@@ -5,6 +5,10 @@ dataset averages.
 
     python -m leastereo_tpu_torch.cli.evaluate --dataset kitti15_part \
         --listset kitti15_part --split train --crop_height 384 --crop_width 1248
+
+The mesh flags split the frames and shard the volume as in
+``cli/predict.py``; each frame's metrics are all-reduced to rank 0, which
+prints the averages of the one-process run.
 """
 
 from __future__ import annotations
@@ -13,12 +17,14 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from ..data import ListSet, StereoListDataset
 from ..data.loaders import uses_left_disparity
+from ..parallel import Mesh, all_reduce
 from ..utils.checkpoint import load_state_dict_file
 from ..utils.colorize import colorize_disparity
-from .common import build_model
+from .common import build_model, run_on_mesh
 from .config import evaluate_parser
 from .predict import make_forward, run_frame, save_confidence
 
@@ -83,7 +89,11 @@ def save_frame(
 
 def main(argv=None) -> int:
     args = evaluate_parser().parse_args(argv)
+    return run_on_mesh("leastereo_tpu_torch.cli.evaluate", argv, args, lambda mesh: evaluate(args, mesh))
 
+
+def evaluate(args, mesh: Mesh) -> int:
+    """Evaluate this rank's frames of the ``args`` run on ``mesh``."""
     lists = ListSet.resolve(args.listset, args.lists_dir)
     ds = StereoListDataset(
         dataset=args.dataset,
@@ -93,16 +103,20 @@ def main(argv=None) -> int:
         training=False,
     )
 
-    model = build_model(args)
+    model = build_model(args, mesh=mesh)
+    writer = mesh.disp_index == 0
     if args.checkpoint:
         load_state_dict_file(args.checkpoint, model)
-        print(f"loaded checkpoint {args.checkpoint}", flush=True)
+        if mesh.rank == 0:
+            print(f"loaded checkpoint {args.checkpoint}", flush=True)
     fwd = make_forward(model)
 
     os.makedirs(args.output_dir, exist_ok=True)
     use_left = uses_left_disparity(args.dataset)
-    totals: list[dict] = []
-    for i in range(len(ds)):
+    keys = ["epe", "err3", *(f"bad{t:g}" for t in args.thresholds), "valid_px"]
+    # One row per frame, filled by the writer that evaluated it.
+    table = torch.zeros(len(ds), len(keys), dtype=torch.float64, device=next(model.parameters()).device)
+    for i in range(mesh.data_index, len(ds), mesh.data):
         stack = ds.load_stack(i)
         disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, full_frame=args.full_frame)
         entropy = None
@@ -122,17 +136,20 @@ def main(argv=None) -> int:
         left_c = np.transpose(stack[0:3], (1, 2, 0))[oh : oh + th, ow : ow + tw]
 
         m = frame_metrics(disp, target_c, args.maxdisp, args.thresholds)
-        totals.append(m)
+        if not writer:
+            continue
+        table[i] = torch.tensor([m[k] for k in keys], dtype=torch.float64)
         name = ds.entries[i].replace("/", "_")
         save_frame(args.output_dir, name, disp, target_c, left_c, args.maxdisp, m, entropy)
         print(f"{ds.entries[i]}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items() if k != "valid_px"), flush=True)
 
-    if totals:
+    if mesh.data * mesh.disp > 1:
+        all_reduce(table, torch.distributed.group.WORLD)
+    if len(ds) and mesh.rank == 0:
         print("=== averages ===")
-        for k in totals[0]:
-            if k == "valid_px":
-                continue
-            print(f"{k}: {np.mean([t[k] for t in totals]):.4f}")
+        rows = table.cpu().numpy()
+        for j, k in enumerate(keys[:-1]):
+            print(f"{k}: {np.mean(rows[:, j]):.4f}")
     return 0
 
 

@@ -10,6 +10,13 @@ and the ``.npy`` disparity; prints per-frame wall time.
 
 ``--checkpoint`` takes a torch state_dict file (``utils/checkpoint.py``),
 not an orbax directory.
+
+Parallel (``cli/common.py`` ``run_on_mesh``): ``--mesh_data N`` splits the
+frames over N data ranks (rank i takes frames i, i + N, ...);
+``--mesh_disp M`` shards each frame's cost volume over M ranks (the CP
+analog for maxdisp-408 Middlebury frames, ``models/leastereo.py``), every
+one of which ends with the whole map. The first disp rank of each data rank
+writes its frames, so every output file is the one-process run's.
 """
 
 from __future__ import annotations
@@ -23,9 +30,10 @@ import torch
 from ..data import ListSet, StereoListDataset
 from ..data.loaders import uses_left_disparity
 from ..data.transforms import test_transform
+from ..parallel import Mesh
 from ..utils.checkpoint import load_state_dict_file
 from ..utils.colorize import colorize_disparity
-from .common import Timer, build_model
+from .common import Timer, build_model, run_on_mesh
 from .config import predict_parser
 
 __all__ = ["main", "run_frame", "make_forward", "pad_to_valid", "save_frame", "save_confidence"]
@@ -118,7 +126,11 @@ def save_frame(output_dir: str, name: str, disp: np.ndarray, entropy=None, gt=No
 
 def main(argv=None) -> int:
     args = predict_parser().parse_args(argv)
+    return run_on_mesh("leastereo_tpu_torch.cli.predict", argv, args, lambda mesh: predict(args, mesh))
 
+
+def predict(args, mesh: Mesh) -> int:
+    """Predict this rank's frames of the ``args`` run on ``mesh``."""
     lists = ListSet.resolve(args.listset, args.lists_dir)
     ds = StereoListDataset(
         dataset=args.dataset,
@@ -128,21 +140,25 @@ def main(argv=None) -> int:
         training=False,
     )
 
-    model = build_model(args)
+    model = build_model(args, mesh=mesh)
+    writer = mesh.disp_index == 0
     if args.checkpoint:
         load_state_dict_file(args.checkpoint, model)
-        print(f"loaded checkpoint {args.checkpoint}", flush=True)
+        if mesh.rank == 0:
+            print(f"loaded checkpoint {args.checkpoint}", flush=True)
     fwd = make_forward(model)
 
     os.makedirs(args.output_dir, exist_ok=True)
     use_left = uses_left_disparity(args.dataset)
-    for i in range(len(ds)):
+    for i in range(mesh.data_index, len(ds), mesh.data):
         stack = ds.load_stack(i)
         with Timer() as t:
             disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, full_frame=args.full_frame)
         entropy = None
         if isinstance(disp, tuple):
             disp, entropy = disp
+        if not writer:
+            continue
         name = ds.entries[i].replace("/", "_")
         gt = (stack[6] if use_left else stack[7]) if args.save_gt else None
         save_frame(args.output_dir, name, disp, entropy, gt, args.maxdisp)

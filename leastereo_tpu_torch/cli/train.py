@@ -11,6 +11,15 @@ metric logs. The train forward's head is the band kernel
 is the fused head. Checkpoints are torch files
 (``run/<dataset>-train/<experiment>/checkpoints/<kind>/<epoch>.pth``) that
 ``--resume`` and the predict and evaluate drivers' ``--checkpoint`` read.
+
+``--mesh_data N`` trains data-parallel over N ranks (``cli/common.py``
+``run_on_mesh``: spawned locally, or from torchrun's environment): each rank
+loads its rows of every global ``--batch_size`` batch and takes the step of
+``train/step.py`` with the mesh. Validation follows the JAX driver
+(``leastereo_tpu/cli/train.py:171-180``): it is not split over ranks; rank
+0 runs it and sends its averages to every rank, which stop early alike.
+Only rank 0 writes checkpoints and logs. ``--mesh_disp > 1`` (disparity-
+sharded training) raises: it is not ported yet (``ROADMAP.md`` A9).
 """
 
 from __future__ import annotations
@@ -22,10 +31,11 @@ import numpy as np
 
 from ..data import ListSet, StereoListDataset, make_loader
 from ..models.leastereo import LEAStereo
+from ..parallel import Mesh, broadcast_module, broadcast_object
 from ..train import eval_step, make_lr_schedule, make_optimizer, train_step
 from ..utils.checkpoint import latest_checkpoint, load_state_dict_file, save_checkpoint
 from ..utils.experiment import EarlyStopping, ExperimentSaver
-from .common import MetricLogger, build_model
+from .common import MetricLogger, build_model, run_on_mesh
 from .config import train_parser
 
 __all__ = ["main", "freeze_params"]
@@ -112,13 +122,28 @@ def make_val_other(args, model: LEAStereo):
 
 def main(argv=None) -> int:
     args = train_parser().parse_args(argv)
+    if args.mesh_disp > 1:
+        raise NotImplementedError(
+            "train --mesh_disp > 1: disparity-sharded training needs the halo exchange's adjoint and BN "
+            "statistics of the planes each rank owns, which are not ported yet (ROADMAP.md A9); "
+            "use --mesh_data, or --mesh_disp with predict and evaluate"
+        )
+    return run_on_mesh("leastereo_tpu_torch.cli.train", argv, args, lambda mesh: train(args, mesh))
+
+
+def train(args, mesh: Mesh) -> int:
+    """The training run of ``args`` as this process's rank of ``mesh``."""
     # First, so that --device cuda without a card raises before a file is written.
     model = build_model(args, seed=args.seed)
     device = next(model.parameters()).device
+    broadcast_module(model, mesh)
+    lead = mesh.rank == 0
 
-    saver = ExperimentSaver(args.run_root, args.dataset, "train", args.experiment, resume=bool(args.resume))
-    saver.save_parameters(args)
-    log = MetricLogger(saver.logs_dir, tensorboard=args.tensorboard)
+    saver = None
+    if lead:
+        saver = ExperimentSaver(args.run_root, args.dataset, "train", args.experiment, resume=bool(args.resume))
+        saver.save_parameters(args)
+    log = MetricLogger(saver.logs_dir if lead else None, tensorboard=args.tensorboard and lead, echo=lead)
 
     lists = ListSet.resolve(args.listset, args.lists_dir)
     crop = (args.crop_height, args.crop_width)
@@ -128,19 +153,22 @@ def main(argv=None) -> int:
         left_right=args.left_right, **ds_kw,
     )
     val_ds = StereoListDataset(list_file=lists.val, crop_size=crop, training=False, **ds_kw)
-    train_loader = make_loader(train_ds, args.batch_size, device=device, seed=args.seed, num_workers=args.workers)
+    train_loader = make_loader(train_ds, args.batch_size, device=device, seed=args.seed, num_workers=args.workers,
+                               process_index=mesh.data_index, process_count=mesh.data)
     val_loader = make_loader(val_ds, args.test_batch_size, device=device, shuffle=False,
                              num_workers=args.workers, drop_last=False)
-    print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.3f} M", flush=True)
+    if lead:
+        print(f"model params: {sum(p.numel() for p in model.parameters()) / 1e6:.3f} M", flush=True)
 
     if args.resume:
         path = args.resume if os.path.isfile(args.resume) else latest_checkpoint(args.resume)
         if path is None:
             raise FileNotFoundError(f"no checkpoint under {args.resume}")
         kept = load_state_dict_file(path, model, tolerant=True)
-        print(f"resumed from {path} ({len(kept)} tensors kept their initial value)", flush=True)
+        if lead:
+            print(f"resumed from {path} ({len(kept)} tensors kept their initial value)", flush=True)
     frozen = freeze_params(model, bool(args.freeze_feature), args.freeze_matching)
-    if frozen:
+    if frozen and lead:
         print(f"frozen: {len(frozen)} parameter tensors", flush=True)
 
     schedule = make_lr_schedule(
@@ -151,7 +179,8 @@ def main(argv=None) -> int:
     optimizer = make_optimizer([p for p in model.parameters() if p.requires_grad], args.solver, args.lr)
 
     def save(kind: str, epoch: int):
-        save_checkpoint(os.path.join(saver.checkpoint_dir, kind), epoch, model)
+        if lead:
+            save_checkpoint(os.path.join(saver.checkpoint_dir, kind), epoch, model)
 
     # n_epochs mode (reference train.py:393-429): fixed epoch count, no early
     # stop (patience past the last epoch); periodic saves gated on
@@ -172,26 +201,31 @@ def main(argv=None) -> int:
 
         early.save_fn = gated_save
 
-    val_other = make_val_other(args, model)
+    val_other = make_val_other(args, model) if lead else None
 
     step = 0
     for epoch in range(args.epochs):
         for epoch_step, batch in enumerate(train_loader(epoch)):
-            metrics = train_step(model, optimizer, batch, args.maxdisp, schedule(step), args.edge_loss_w)
+            metrics = train_step(model, optimizer, batch, args.maxdisp, schedule(step), args.edge_loss_w, mesh=mesh)
             step += 1
             if step % 10 == 1:
                 log.log(step, epoch=epoch, **metrics)
             if args.max_steps_per_epoch and epoch_step + 1 >= args.max_steps_per_epoch:
                 break
-        vals = [eval_step(model, batch, args.maxdisp)[1] for batch in val_loader(0)]
-        if val_other is not None:
-            for name, m in val_other():
-                log.log(step, epoch=epoch, **{f"val_{name}_{k}": v for k, v in m.items()})
-        if vals:
-            avg = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
+        avg = None
+        if lead:
+            vals = [eval_step(model, batch, args.maxdisp)[1] for batch in val_loader(0)]
+            if val_other is not None:
+                for name, m in val_other():
+                    log.log(step, epoch=epoch, **{f"val_{name}_{k}": v for k, v in m.items()})
+            if vals:
+                avg = {k: float(np.mean([v[k] for v in vals])) for k in vals[0]}
+        avg = broadcast_object(avg, mesh)
+        if avg is not None:
             log.log(step, epoch=epoch, **{f"val_{k}": v for k, v in avg.items()})
             if early(avg["err3"], epoch + 1):
-                print(f"early stop at epoch {epoch} (best {early.best:.4f} @ {early.best_epoch})", flush=True)
+                if lead:
+                    print(f"early stop at epoch {epoch} (best {early.best:.4f} @ {early.best_epoch})", flush=True)
                 break
     save("final", args.epochs)
     log.close()

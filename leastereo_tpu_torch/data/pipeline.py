@@ -3,8 +3,9 @@
 A thread pool decodes and augments samples on the host, batches are stacked
 as numpy, and a prefetcher copies them to the device from pinned memory with
 ``non_blocking`` copies, ``depth`` batches in flight, so the copy of batch
-N+1 overlaps the step on batch N. One process loads the whole batch: the
-multi-host slicing of the JAX package waits for the port's parallel runs.
+N+1 overlaps the step on batch N. In a data-parallel run each process
+loads only its rows of every global batch (``process_index`` /
+``process_count``, as ``leastereo_tpu/data/pipeline.py:57-64``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ def batch_iterator(
     seed: int = 0,
     num_workers: int = 4,
     drop_last: bool = True,
+    process_index: int = 0,
     process_count: int = 1,
 ) -> Iterator[dict]:
     """Yield batch dicts {left, right, disparity} of stacked numpy arrays.
@@ -37,9 +39,13 @@ def batch_iterator(
     Shuffling is a seeded permutation per (seed, epoch); sample loading fans
     out over a thread pool (PIL/numpy release the GIL for decode/copy work).
     ``num_workers <= 0`` loads in the calling thread.
+
+    Data-parallel: ``batch_size`` is the GLOBAL batch; with
+    ``process_count > 1`` process ``process_index`` loads and yields only its
+    ``batch_size / process_count`` contiguous rows of every global batch.
+    The permutation is seeded alike on every process, so the global batches
+    agree.
     """
-    if process_count != 1:
-        raise ValueError(f"process_count {process_count}: the port loads on one process only")
     order = np.arange(len(dataset))
     if shuffle:
         np.random.default_rng(np.random.SeedSequence([seed, epoch])).shuffle(order)
@@ -49,6 +55,14 @@ def batch_iterator(
         order = order[:n]
     if n == 0:
         return
+    if process_count > 1:
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by {process_count} processes")
+        if not drop_last and n % batch_size:
+            raise ValueError("data-parallel loading requires drop_last")
+        local = batch_size // process_count
+        order = order.reshape(-1, batch_size)[:, process_index * local : (process_index + 1) * local].ravel()
+        batch_size = local
 
     def load(i):
         return dataset.__getitem__(int(i), epoch=epoch)
@@ -105,14 +119,19 @@ def make_loader(
     seed: int = 0,
     num_workers: int = 4,
     drop_last: bool = True,
+    process_index: int = 0,
+    process_count: int = 1,
 ):
     """Epoch factory: ``loader(epoch) -> iterator`` of batches on ``device``,
-    with ``steps_per_epoch``, ``dataset`` and ``batch_size`` attributes."""
+    with ``steps_per_epoch``, ``dataset`` and ``batch_size`` attributes.
+    ``batch_size`` is the global batch; each batch holds process
+    ``process_index``'s rows of it (:func:`batch_iterator`)."""
 
     def epoch_iter(epoch: int) -> Iterator[dict]:
         batches = batch_iterator(
             dataset, batch_size, shuffle=shuffle, epoch=epoch, seed=seed,
             num_workers=num_workers, drop_last=drop_last,
+            process_index=process_index, process_count=process_count,
         )
         return prefetch_to_device(batches, device)
 

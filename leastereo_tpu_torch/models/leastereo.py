@@ -26,6 +26,13 @@ kernel wrapper runs its plain version. Inputs are NHWC
 ``(B, H, W, 3)`` with H, W divisible by 3 (and by 12 at 1/3 resolution for
 the deepest matching level), as in the JAX model; the output is ``(B, H, W)``
 fp32, or ``(disp, entropy)`` with ``return_entropy``.
+
+With ``cost_volume_pspec`` naming the ``disp`` axis, the matching net runs
+on this rank's slab of the volume's D planes over the ``disp`` group of
+``self.mesh`` (``parallel/mesh.py``; ``None`` is a 1x1 mesh), and the head
+is the plain distributed soft-argmin (``soft_argmin_sharded``): neither CUDA
+head runs there, as the JAX package gates its kernels off under a pspec
+(``leastereo_tpu/models/leastereo.py:126,171``). Eval only.
 """
 
 from __future__ import annotations
@@ -38,7 +45,15 @@ import torch.nn as nn
 
 from ..ops.fused_head import conv_soft_argmin_fused, fused_head_gate_reason, fused_head_route
 from ..ops.fused_softargmin import soft_argmin_fused
-from ..ops.softargmin import disparity_entropy, soft_argmin, soft_argmin_fast
+from ..ops.softargmin import (
+    disparity_entropy,
+    disparity_entropy_sharded,
+    soft_argmin,
+    soft_argmin_fast,
+    soft_argmin_sharded,
+)
+from ..parallel.halo import DispPartition
+from ..parallel.mesh import DATA_AXIS, DISP_AXIS
 from .feature_net import FeatureNet
 from .genotypes import BEST_SCENEFLOW, Architecture
 from .matching_net import MatchingNet
@@ -70,6 +85,16 @@ class LEAStereoConfig:
     pallas_head: bool = True
     # Also return the disparity-entropy confidence map (predict --confidence).
     return_entropy: bool = False
+    # Axis names constraining the (B, D, H, W, C) cost volume, as in the JAX
+    # config: ("data", "disp") shards the disparity axis over the mesh's disp
+    # ranks (the CP analog for maxdisp-408 Middlebury frames). Set, it gates
+    # both CUDA heads off, as in JAX; the model's ``mesh`` names the ranks.
+    cost_volume_pspec: tuple | None = None
+
+    def __post_init__(self):
+        pspec = self.cost_volume_pspec
+        if pspec is not None and any(a not in (None, DATA_AXIS, DISP_AXIS) for a in pspec):
+            raise ValueError(f"cost_volume_pspec {pspec}: axes are {DATA_AXIS!r}, {DISP_AXIS!r} or None")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -99,6 +124,7 @@ class LEAStereo(nn.Module):
             generator=generator,
         )
         self._gate_warned: set[str] = set()
+        self.mesh = None  # parallel.Mesh of a cost_volume_pspec run; None: 1x1
 
     def _warn_once(self, msg: str) -> None:
         if msg not in self._gate_warned:
@@ -114,6 +140,11 @@ class LEAStereo(nn.Module):
             # The stride-3 stem would round up and return a larger map; sizes
             # that divide by 3 but not by the deeper levels fail in the nets.
             raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
+        if cfg.cost_volume_pspec is not None and self.training:
+            raise NotImplementedError(
+                "training with cost_volume_pspec: the halo exchange has no adjoint and BN would need "
+                "statistics of the planes each rank owns (ROADMAP.md A9, disparity-sharded training)"
+            )
         # Shared weights across views (reference retrain/LEAStereo.py:31-32).
         if self.training:
             # One call per view, as the reference and the JAX model
@@ -125,6 +156,8 @@ class LEAStereo(nn.Module):
             # Eval BN reads running stats, so both views run as one batch.
             feats = self.feature(torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype))
             f_left, f_right = feats[:b], feats[b:]
+        if cfg.cost_volume_pspec is not None:
+            return self._sharded_head(f_left, f_right)
         vol = self.matching(f_left, f_right, cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
 
         last_3 = self.matching.last_3
@@ -145,6 +178,29 @@ class LEAStereo(nn.Module):
             disp = soft_argmin(cost, cfg.maxdisp)
         if cfg.return_entropy:
             return disp, disparity_entropy(cost, cfg.maxdisp)
+        return disp
+
+    def disp_partition(self) -> DispPartition:
+        """The partition of the volume's ``maxdisp // 3`` planes over this
+        rank's ``disp`` group (one shard when the pspec leaves D whole or
+        there is no mesh)."""
+        pspec, mesh = self.config.cost_volume_pspec, self.mesh
+        depth = self.config.maxdisp // 3
+        if mesh is None or len(pspec) < 2 or pspec[1] != DISP_AXIS or mesh.disp == 1:
+            return DispPartition(depth)
+        return DispPartition(depth, mesh.disp, mesh.disp_index, mesh.disp_group)
+
+    def _sharded_head(self, f_left: torch.Tensor, f_right: torch.Tensor):
+        """The matching net on this rank's slab and the plain distributed head."""
+        cfg = self.config
+        if cfg.fast_head:
+            raise NotImplementedError("fast_head with cost_volume_pspec: the sharded heads are the exact ones")
+        part = self.disp_partition()
+        vol = self.matching(f_left, f_right, part.depth, fused_stem=cfg.fused_stem, part=part)
+        cost = self.matching.last_3(vol, part)[:, 0]
+        disp = soft_argmin_sharded(cost, part, cfg.maxdisp)
+        if cfg.return_entropy:
+            return disp, disparity_entropy_sharded(cost, part, cfg.maxdisp)
         return disp
 
 

@@ -8,6 +8,13 @@ Filters the stereo features through the fused cost-volume stem0, stem1,
 feeding cell 9) and the level-dependent upsample head. ``forward`` ends at
 the pre-head volume; the ``last_3`` conv (C -> 1) is applied by the caller's
 head (``models/leastereo.py``), which may fuse it into a kernel.
+
+Given a :class:`~leastereo_tpu_torch.parallel.DispPartition` of the
+volume's D planes, ``forward`` computes one rank's slab of every volume
+(the CP analog of the JAX package's ``volume_pspec``): the stem builds its
+planes from the features, each level takes its own partition of that
+level's depth, and the 3x3x3 convolutions and resizes exchange the planes
+they need (``parallel/halo.py``). Eval only.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from ..ops.convbr import ConvBR
 from ..ops.cost_volume import build_cost_volume
 from ..ops.fused_stem import fused_cost_volume_stem
 from ..ops.resize import resize3d
+from ..parallel.halo import DispPartition
 from .cells import FixedCell
 from .genotypes import FILTER_SCALE, Architecture
 
@@ -40,11 +48,22 @@ class FusedStem0(ConvBR):
     def __init__(self, feature_channels: int, out_channels: int, generator: torch.Generator | None = None):
         super().__init__(2 * feature_channels, out_channels, 3, 1, 1, ndim=3, generator=generator)
 
-    def forward(self, left: torch.Tensor, right: torch.Tensor, num_disp: int, fused: bool = True):
+    def forward(
+        self,
+        left: torch.Tensor,
+        right: torch.Tensor,
+        num_disp: int,
+        fused: bool = True,
+        part: DispPartition | None = None,
+    ):
+        """``part``: compute only rank ``part.rank``'s planes (fused, eval)."""
+        if part is not None and (not fused or self.training):
+            raise NotImplementedError("the disparity-sharded stem is the fused eval stem only")
         if not fused or self.training:
             return super().forward(build_cost_volume(left, right, num_disp))
         weight, bias = self.folded()
-        return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True)
+        planes = None if part is None else (part.lo, part.hi)
+        return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True, planes=planes)
 
 
 class MatchingNet(nn.Module):
@@ -95,29 +114,38 @@ class MatchingNet(nn.Module):
         self.last_3 = ConvBR(c, 1, 3, 1, 1, bn=False, relu=False, **kw)
 
     def forward(
-        self, left: torch.Tensor, right: torch.Tensor, num_disp: int, fused_stem: bool = True
+        self,
+        left: torch.Tensor,
+        right: torch.Tensor,
+        num_disp: int,
+        fused_stem: bool = True,
+        part: DispPartition | None = None,
     ) -> torch.Tensor:
         """NCHW features ``(B, C, h, w)`` of both views -> the pre-head volume
-        ``(B, ifm, num_disp, h, w)`` (input of ``last_3``)."""
+        ``(B, ifm, num_disp, h, w)`` (input of ``last_3``); with ``part`` (of
+        ``num_disp`` planes), rank ``part.rank``'s slab of it."""
         d, h, w = num_disp, left.shape[2], left.shape[3]
-        stem0 = self.stem0(left, right, num_disp, fused=fused_stem)
-        stem1 = self.stem1(stem0)
+        stem0 = self.stem0(left, right, num_disp, fused=fused_stem, part=part)
+        stem1 = self.stem1(stem0, part)
 
         concats: list[torch.Tensor] = []
+        parts: list[DispPartition | None] = []
         s0, s1 = stem0, stem1
+        p0 = p1 = part
         for i, cell in enumerate(self.cells):
-            prev_raw, concat = cell(s0, s1)
+            prev_raw, concat = cell(s0, s1, None if part is None else (p0, p1))
+            p_out = None if part is None else p1.of_depth(cell.out_size((p1.depth,))[0])
             concats.append(concat)
+            parts.append(p_out)
             if i in self._skips:
                 src, name = self._skips[i]
-                concat = getattr(self, name)(torch.cat([concats[src], concat], dim=1))
+                concat = getattr(self, name)(torch.cat([concats[src], concat], dim=1), p_out)
             s0, s1 = prev_raw, concat
+            p0, p1 = p1, p_out
 
-        last = concats[-1]
-        if self.level >= 3:
-            last = resize3d(self.last_24(last), (d // 4, h // 4, w // 4))
-        if self.level >= 2:
-            last = resize3d(self.last_12(last), (d // 2, h // 2, w // 2))
-        if self.level >= 1:
-            last = resize3d(self.last_6(last), (d, h, w))
+        last, p_last = concats[-1], parts[-1]
+        for lvl, div, conv in ((3, 4, "last_24"), (2, 2, "last_12"), (1, 1, "last_6")):
+            if self.level >= lvl:
+                last = resize3d(getattr(self, conv)(last), (d // div, h // div, w // div), part=p_last)
+                p_last = None if part is None else part.of_depth(d // div)
         return last

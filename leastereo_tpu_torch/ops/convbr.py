@@ -10,15 +10,26 @@ float32; the convolution runs in the dtype of its input. In eval mode the BN
 affine is folded into the kernel in float32 (``w = scale / sqrt(var + eps)``)
 and the bias rides the convolution's epilogue, then the folded kernel is cast
 once to the input dtype (``convbr.py:102-107`` of the JAX package).
+
+Parallel runs: with ``bn_group`` set (:func:`set_bn_group`), train-mode BN
+normalises with the statistics of the global batch over that group
+(sync-BN, as flax computes them under GSPMD). Given a
+:class:`~leastereo_tpu_torch.parallel.DispPartition`, a depth-3 convolution
+takes its neighbours' ±1 planes (``parallel/halo.py``) and convolves with
+no depth padding, so a rank's slab of a disparity-sharded volume comes out
+as the same planes of the unsharded convolution.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed.nn.functional as dist_fn
 import torch.nn as nn
 import torch.nn.functional as F
 
-__all__ = ["ConvBR", "fold_bn"]
+from ..parallel.halo import DispPartition, halo
+
+__all__ = ["ConvBR", "fold_bn", "set_bn_group"]
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
@@ -55,10 +66,24 @@ class ConvBR(nn.Module):
         )
         self.bn = bn_cls(out_channels, eps=1e-5, momentum=0.1) if bn else None
         self.relu = relu
+        self.bn_group = None  # process group of the train-mode BN statistics
 
-    def conv_fn(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None):
-        conv = F.conv2d if self.conv.weight.ndim == 4 else F.conv3d
-        return conv(x, weight, bias, self.conv.stride, self.conv.padding)
+    def conv_fn(
+        self,
+        x: torch.Tensor,
+        weight: torch.Tensor,
+        bias: torch.Tensor | None,
+        part: DispPartition | None = None,
+    ) -> torch.Tensor:
+        """The convolution; with ``part``, of rank ``part.rank``'s slab of a
+        volume sharded along depth (its halo fetched, no depth padding)."""
+        if self.conv.weight.ndim == 4:
+            return F.conv2d(x, weight, bias, self.conv.stride, self.conv.padding)
+        padding = self.conv.padding
+        if part is not None and self.conv.kernel_size[0] > 1:
+            x = halo(x, part, self.conv.kernel_size[0] // 2)
+            padding = (0, *padding[1:])
+        return F.conv3d(x, weight, bias, self.conv.stride, padding)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor | None]:
         """Kernel and bias of the eval-mode conv with BN folded in (float32)."""
@@ -75,21 +100,52 @@ class ConvBR(nn.Module):
         variance towards the *biased* batch variance, as flax's
         ``nn.BatchNorm`` in the JAX package does. ``nn.BatchNorm*d``, and
         with it the original PyTorch reference, moves it towards the
-        unbiased one."""
+        unbiased one.
+
+        With ``bn_group`` set the statistics are those of the global batch
+        (every rank's rows): fp32, in two passes, each a differentiable
+        all_reduce (the sum and the count, then the squared deviations from
+        the global mean), so the gradient flows through the other ranks'
+        rows as through one batch. Every rank moves its running stats alike."""
         if self.bn is not None:
             bn = self.bn
             xf = x.float()
+            dims = [0, *range(2, xf.ndim)]
+            if self.bn_group is None:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(xf, dim=dims, correction=0)
+                xf = F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0, bn.eps)
+            else:
+                c = xf.shape[1]
+                shape = (1, c, *[1] * (xf.ndim - 2))
+                local = torch.cat([xf.sum(dims), xf.new_full((1,), xf.numel() / c)])
+                total = dist_fn.all_reduce(local, group=self.bn_group)
+                mean = total[:c] / total[c]
+                dev = xf - mean.view(shape)
+                var = dist_fn.all_reduce(dev.square().sum(dims), group=self.bn_group) / total[c]
+                xf = dev * torch.rsqrt(var + bn.eps).view(shape) * bn.weight.view(shape) + bn.bias.view(shape)
             with torch.no_grad():
-                var, mean = torch.var_mean(xf, dim=[0, *range(2, xf.ndim)], correction=0)
-                bn.running_mean.mul_(1 - bn.momentum).add_(mean, alpha=bn.momentum)
-                bn.running_var.mul_(1 - bn.momentum).add_(var, alpha=bn.momentum)
+                bn.running_mean.mul_(1 - bn.momentum).add_(mean.detach(), alpha=bn.momentum)
+                bn.running_var.mul_(1 - bn.momentum).add_(var.detach(), alpha=bn.momentum)
                 bn.num_batches_tracked += 1
-            x = F.batch_norm(xf, None, None, bn.weight, bn.bias, True, 0.0, bn.eps).to(x.dtype)
+            x = xf.to(x.dtype)
         return torch.relu(x) if self.relu else x
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, part: DispPartition | None = None) -> torch.Tensor:
+        """``part``: the depth partition of ``x`` when it is one rank's slab of
+        a disparity-sharded volume (eval only: the exchange has no adjoint)."""
         if self.training:
+            if part is not None:
+                raise NotImplementedError("disparity-sharded training: the halo exchange has no backward yet")
             return self.post(self.conv_fn(x, self.conv.weight.to(x.dtype), None))
         weight, bias = self.folded()
-        x = self.conv_fn(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype))
+        x = self.conv_fn(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), part)
         return torch.relu(x) if self.relu else x
+
+
+def set_bn_group(module: nn.Module, group) -> None:
+    """Train-mode BN of every ``ConvBR`` in ``module`` over ``group`` (sync-BN);
+    ``None`` restores per-process statistics."""
+    for m in module.modules():
+        if isinstance(m, ConvBR):
+            m.bn_group = group

@@ -59,6 +59,7 @@ def fused_cost_volume_stem(
     num_disp: int,
     bias: torch.Tensor | None = None,
     relu: bool = False,
+    planes: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """``conv3d(build_cost_volume(left, right, num_disp), kernel, padding=1)``
     without materialising the volume.
@@ -69,13 +70,20 @@ def fused_cost_volume_stem(
       num_disp: volume depth ``D``.
       bias: optional ``(F,)`` epilogue bias (the eval-folded BN bias).
       relu: apply the stem ReLU in the same epilogue.
+      planes: the global planes ``[lo, hi)`` to compute (a rank's slab of a
+        disparity-sharded volume); default all ``D``. The neighbour planes
+        the depth taps read come from the features here, with no exchange,
+        and the volume is zero beyond ``[0, D)``.
 
     Returns:
-      NCDHW ``(B, F, D, H, W)``.
+      NCDHW ``(B, F, hi - lo, H, W)``.
     """
     b, c, h, w = left.shape
     f = kernel.shape[0]
     nd = num_disp
+    lo, hi = planes if planes is not None else (0, nd)
+    if not 0 <= lo < hi <= nd:
+        raise ValueError(f"planes [{lo}, {hi}) outside [0, {nd})")
     if tuple(kernel.shape[1:]) != (2 * c, 3, 3, 3):
         raise ValueError(f"expected ({f}, {2 * c}, 3, 3, 3) kernel, got {tuple(kernel.shape)}")
     kernel = kernel.to(left.dtype)
@@ -96,7 +104,7 @@ def fused_cost_volume_stem(
     # Plane types: which depth taps kd land inside [0, D) at plane d.
     valid_sets: list[tuple[int, ...]] = []
     ptype = []
-    for d in range(nd):
+    for d in range(lo, hi):
         v = tuple(kd for kd in range(3) if 0 <= d + kd - 1 < nd)
         if v not in valid_sets:
             valid_sets.append(v)
@@ -116,8 +124,8 @@ def fused_cost_volume_stem(
     left_tab = torch.stack(left_maps, dim=2).reshape(b, f, -1)  # (B, F, T*6*H*W)
     right_tab = torch.stack(right_maps, dim=2).reshape(b, f, -1)  # (B, F, T*H*wg)
 
-    pt = torch.tensor(ptype, device=dev).view(nd, 1, 1)
-    dd = torch.arange(nd, device=dev).view(nd, 1, 1)
+    pt = torch.tensor(ptype, device=dev).view(-1, 1, 1)
+    dd = torch.arange(lo, hi, device=dev).view(-1, 1, 1)
     hh = torch.arange(h, device=dev).view(1, h, 1)
     ww = torch.arange(w, device=dev).view(1, 1, w)
     cls = (ww - dd + 3).clamp(0, _N_CLASSES - 1)
@@ -125,13 +133,13 @@ def fused_cost_volume_stem(
     idx_right = (pt * h + hh) * wg + (ww - dd + nd - 1)
     out = left_tab.index_select(2, idx_left.reshape(-1))
     out += right_tab.index_select(2, idx_right.reshape(-1))
-    out = out.view(b, f, nd, h, w)
+    out = out.view(b, f, hi - lo, h, w)
 
     # Right-edge fix: at w = W-1 the kw = +1 tap read R[u], u = W+1-d-kd,
     # where the volume holds its zero column w' = W.
     fix = None
     for kd in range(3):
-        u = w + 1 - kd - torch.arange(nd, device=dev)
+        u = w + 1 - kd - dd.view(-1)
         ok = (u >= 0) & (u < w) & (dd.view(-1) + kd - 1 >= 0) & (dd.view(-1) + kd - 1 < nd)
         term = corr[:, kd].index_select(3, u.clamp(0, w - 1)) * ok.to(left.dtype)
         fix = term if fix is None else fix + term

@@ -4,12 +4,20 @@ The JAX package rebuilds PyTorch's ``F.interpolate`` semantics from dense
 interpolation matrices; here ``F.interpolate`` itself is the semantics. Every
 resize passes an explicit output size, so no scale-factor rounding enters.
 Layouts are NCHW (2-D) and NCDHW (3-D).
+
+A rank's slab of a disparity-sharded volume is resized by
+:func:`resize3d` given its partition: bilinear in (H, W) on the fetched
+source planes, then linear along D at the *global* align_corners=True
+coordinates. ``F.interpolate`` on the slab alone would place the planes at
+the slab's own coordinates.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..parallel.halo import DispPartition, fetch_planes
 
 __all__ = ["scale_dimension", "resize2d", "resize3d", "upsample3x_axis"]
 
@@ -29,11 +37,54 @@ def resize2d(x: torch.Tensor, out_hw: tuple[int, int], align_corners: bool = Tru
     return F.interpolate(x, size=tuple(out_hw), mode="bilinear", align_corners=align_corners)
 
 
-def resize3d(x: torch.Tensor, out_dhw: tuple[int, int, int], align_corners: bool = True) -> torch.Tensor:
-    """Trilinear resize of an NCDHW tensor to ``out_dhw``."""
-    if tuple(x.shape[2:]) == tuple(out_dhw):
-        return x
-    return F.interpolate(x, size=tuple(out_dhw), mode="trilinear", align_corners=align_corners)
+def resize3d(
+    x: torch.Tensor,
+    out_dhw: tuple[int, int, int],
+    align_corners: bool = True,
+    part: DispPartition | None = None,
+) -> torch.Tensor:
+    """Trilinear resize of an NCDHW tensor to ``out_dhw``.
+
+    With ``part``, ``x`` is rank ``part.rank``'s slab of a volume of
+    ``part.depth`` planes sharded along D, and the result is its slab of the
+    resized volume (``out_dhw[0]`` planes over the same ranks)."""
+    if part is None:
+        if tuple(x.shape[2:]) == tuple(out_dhw):
+            return x
+        return F.interpolate(x, size=tuple(out_dhw), mode="trilinear", align_corners=align_corners)
+    if not align_corners:
+        raise ValueError("the sharded resize follows the model's align_corners=True grid only")
+    n_in, n_out = part.depth, out_dhw[0]
+    out_part = part.of_depth(n_out)
+    # PyTorch's trilinear arithmetic (upsample_trilinear3d, align_corners):
+    # a float32 scale, the source coordinate scale * p, its integer part and
+    # float32 weights; each source plane resized bilinearly in (H, W), then
+    # the two planes blended as lambda0 * a + lambda1 * b in one fused
+    # multiply-add (addcmul). On the card this reproduces F.interpolate's
+    # result bit for bit, so a sharded volume's planes are the unsharded ones.
+    scale = torch.tensor(float(n_in - 1) if n_out > 1 else 0.0, dtype=torch.float32) / max(n_out - 1, 1)
+
+    def first(p: int) -> int:  # the lower source plane of output plane p
+        return min(int(scale * p), n_in - 1)
+
+    bounds = out_part.bounds
+    lo = [first(a) for a, _ in bounds]
+    hi = [min(first(b - 1) + 2, n_in) for _, b in bounds]
+    src = fetch_planes(x, part, lo, hi)
+    bsz, c, n, h, w = src.shape
+    if (h, w) != tuple(out_dhw[1:]):
+        src = F.interpolate(src.transpose(1, 2).reshape(bsz * n, c, h, w), size=tuple(out_dhw[1:]),
+                            mode="bilinear", align_corners=True)
+        src = src.view(bsz, n, c, *out_dhw[1:]).transpose(1, 2)
+    pos = scale * torch.arange(out_part.lo, out_part.hi, dtype=torch.float32)
+    i0 = pos.long()
+    lam1 = pos - i0.float()
+    i1 = (i0 + 1).clamp(max=n_in - 1)
+    base = lo[part.rank]
+    a = src.index_select(2, (i0 - base).to(x.device))
+    b = src.index_select(2, (i1 - base).to(x.device))
+    lam0, lam1 = ((v.view(1, 1, -1, 1, 1).to(device=x.device, dtype=x.dtype)) for v in (1.0 - lam1, lam1))
+    return torch.addcmul(lam1 * b, lam0, a)
 
 
 def upsample3x_axis(x: torch.Tensor, axis: int) -> torch.Tensor:

@@ -8,15 +8,32 @@ softmin'd over the ``3D`` disparity planes and reduced to ``sum_d d * p(d)``.
 (``ops/fused_softargmin.py``, ``ops/fused_head.py``) and their backward.
 The cost tensors here are ``(B, D, h, w)``: the JAX functions take the same
 data as ``(B, D, h, w, 1)``.
+
+``soft_argmin_sharded`` and ``disparity_entropy_sharded`` are the plain
+distributed heads of a disparity-sharded cost (``parallel/halo.py``): each
+rank holds a slab of the D planes, takes its neighbours' ±1 low-res planes
+for the 3x D upsample (edges clamped at the global ends only), and the
+reductions over D are all_reduces, so every rank ends with the whole
+``(B, 3h, 3w)`` map. The JAX package runs its plain heads there too
+(``leastereo_tpu/models/leastereo.py:126,171``).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.halo import DispPartition, halo
+from ..parallel.mesh import all_reduce
 from .resize import resize2d, upsample3x_axis
 
-__all__ = ["soft_argmin", "soft_argmin_fast", "disparity_entropy"]
+__all__ = [
+    "soft_argmin",
+    "soft_argmin_fast",
+    "disparity_entropy",
+    "soft_argmin_sharded",
+    "disparity_entropy_sharded",
+]
 
 
 def _math_dtype(x: torch.Tensor) -> torch.Tensor:
@@ -42,17 +59,63 @@ def soft_argmin(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
     x = upsample3x_axis(x, 3)  # (B, D, 3h, 3w)
     xm1 = torch.cat([x[:, :1], x[:, :-1]], dim=1)
     xp1 = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+    a = _phases(xm1, x, xp1)
+    m = _phase_min(a)
+    num, den = _expectation(a, m, 0)
+    return num / den
+
+
+def _phases(xm1: torch.Tensor, x: torch.Tensor, xp1: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """The three disparity phases of the 3x D upsample at each plane."""
     third = 1.0 / 3.0
-    a0 = (xm1 + 2.0 * x) * third
-    a1 = x
-    a2 = (2.0 * x + xp1) * third
-    m = torch.minimum(torch.minimum(a0, a1), a2).amin(dim=1, keepdim=True)
+    return (xm1 + 2.0 * x) * third, x, (2.0 * x + xp1) * third
+
+
+def _phase_min(a: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    return torch.minimum(torch.minimum(a[0], a[1]), a[2]).amin(dim=1, keepdim=True)
+
+
+def _expectation(a: tuple[torch.Tensor, ...], m: torch.Tensor, lo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``sum d' e^(m - a)`` and ``sum e^(m - a)`` over the planes of ``a``,
+    the first of which is global plane ``lo``."""
+    a0, a1, a2 = a
     e0 = torch.exp(m - a0)
     e1 = torch.exp(m - a1)
     e2 = torch.exp(m - a2)
-    i3 = 3.0 * torch.arange(dn, dtype=x.dtype, device=x.device).view(1, dn, 1, 1)
+    dn = a1.shape[1]
+    i3 = 3.0 * torch.arange(lo, lo + dn, dtype=a1.dtype, device=a1.device).view(1, dn, 1, 1)
     den = (e0 + e1 + e2).sum(dim=1)
     num = (i3 * e0 + (i3 + 1.0) * e1 + (i3 + 2.0) * e2).sum(dim=1)
+    return num, den
+
+
+def _clamped_halo(cost: torch.Tensor, part: DispPartition) -> torch.Tensor:
+    """The slab ``(B, n, h, w)`` with one low-res plane of each neighbour on
+    either side, as float32; at a global end, the end plane again (the
+    upsample's edge clamp)."""
+    x = _math_dtype(halo(cost, part, 1, dim=1))
+    if part.lo == 0:
+        x[:, 0] = x[:, 1]
+    if part.hi == part.depth:
+        x[:, -1] = x[:, -2]
+    return x
+
+
+def soft_argmin_sharded(cost: torch.Tensor, part: DispPartition, maxdisp: int) -> torch.Tensor:
+    """:func:`soft_argmin` of a cost sharded along D: ``cost`` is rank
+    ``part.rank``'s ``(B, n, h, w)`` slab of the ``part.depth`` planes. The
+    same fp32 formula; the minimum is an all_reduce MIN and the two sums an
+    all_reduce SUM over ``part.group``. Returns the whole ``(B, 3h, 3w)`` map
+    on every rank."""
+    if maxdisp != 3 * part.depth:
+        raise ValueError(f"maxdisp {maxdisp} != 3 * D ({part.depth})")
+    x = _clamped_halo(cost, part)
+    x = upsample3x_axis(x, 2)
+    x = upsample3x_axis(x, 3)  # (B, n + 2, 3h, 3w)
+    a = _phases(x[:, :-2], x[:, 1:-1], x[:, 2:])
+    m = all_reduce(_phase_min(a), part.group, dist.ReduceOp.MIN)
+    num, den = _expectation(a, m, part.lo)
+    num, den = all_reduce(torch.stack([num, den]), part.group)
     return num / den
 
 
@@ -82,5 +145,24 @@ def disparity_entropy(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:
     x = upsample3x_axis(x, 3)
     logp = torch.log_softmax(x, dim=1)
     e = -(logp.exp() * logp).sum(dim=1)
+    e = torch.where(torch.isnan(e), torch.zeros_like(e), e)
+    return torch.softmax(-e, dim=1)
+
+
+def disparity_entropy_sharded(cost: torch.Tensor, part: DispPartition, maxdisp: int) -> torch.Tensor:
+    """:func:`disparity_entropy` of a cost sharded along D (``cost`` as in
+    :func:`soft_argmin_sharded`): the log-softmax over the 3D planes takes
+    its maximum (all_reduce MAX) and its normaliser (all_reduce SUM) from
+    every rank, and the entropy sums over ranks. The whole ``(B, 3h, 3w)``
+    map on every rank."""
+    if maxdisp != 3 * part.depth:
+        raise ValueError(f"maxdisp {maxdisp} != 3 * D ({part.depth})")
+    x = upsample3x_axis(_clamped_halo(cost, part), 1)[:, 3:-3]  # this rank's 3n planes
+    x = upsample3x_axis(x, 2)
+    x = upsample3x_axis(x, 3)
+    m = all_reduce(x.amax(dim=1, keepdim=True), part.group, dist.ReduceOp.MAX)
+    s = all_reduce(torch.exp(x - m).sum(dim=1, keepdim=True), part.group)
+    logp = x - m - torch.log(s)
+    e = all_reduce(-(logp.exp() * logp).sum(dim=1), part.group)
     e = torch.where(torch.isnan(e), torch.zeros_like(e), e)
     return torch.softmax(-e, dim=1)

@@ -14,6 +14,11 @@ the count of weight steps taken: no ``SearchState``. The lr of weight step
 ``k`` (0-based) is ``schedule(k)``, as optax's count gives it; arch steps do
 not advance the count. Both steps run the train-mode forward, so both update
 the BN running statistics, as the JAX steps do.
+
+Data-parallel (``mesh``): the reductions of ``train/step.py``. The batch is
+this rank's rows; the supernet's BN syncs over the data group, the loss is
+this rank's sum over the global count of ``target < maxdisp``, the stepped
+side's gradients are summed over the group, and the metrics are global.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from collections.abc import Callable, Iterable
 
 import torch
 
+from ..ops.convbr import set_bn_group
+from ..parallel.mesh import Mesh, all_reduce_grads
 from ..train.losses import smooth_l1
-from ..train.metrics import epe, three_px_error
+from ..train.step import global_count, global_metrics
 
 __all__ = [
     "cosine_iter_schedule",
@@ -65,45 +72,57 @@ def make_arch_optimizer(
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=weight_decay)
 
 
-def search_loss(disp: torch.Tensor, target: torch.Tensor, maxdisp: int) -> torch.Tensor:
+def search_loss(
+    disp: torch.Tensor, target: torch.Tensor, maxdisp: int, count: torch.Tensor | None = None
+) -> torch.Tensor:
     """Mean smooth-L1 over ``target < maxdisp``, with no lower bound on the
-    target, unlike the retrain loss (reference search.py:170-183)."""
+    target, unlike the retrain loss (reference search.py:170-183). ``count``
+    replaces this batch's count as the divisor (the global count)."""
     mask = target < maxdisp
-    return (smooth_l1(disp - target) * mask).sum() / mask.sum().clamp(min=1)
+    return (smooth_l1(disp - target) * mask).sum() / (mask.sum() if count is None else count).clamp(min=1)
 
 
-def _step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, batch: dict, maxdisp: int) -> dict[str, float]:
+def _step(
+    model: torch.nn.Module, optimizer: torch.optim.Optimizer, batch: dict, maxdisp: int, mesh: Mesh | None
+) -> dict[str, float]:
     """Train-mode forward, search loss, a backward into the optimizer's
     parameters only, and its update."""
     model.train()
+    group = None if mesh is None else mesh.data_group
+    set_bn_group(model, group)
     device = next(model.parameters()).device
     left, right, target = (torch.as_tensor(batch[k]).to(device) for k in ("left", "right", "disparity"))
+    count = None if group is None else global_count(target < maxdisp, group)
     disp = model(left, right).float()
-    loss = search_loss(disp, target, maxdisp)
-    params = [p for group in optimizer.param_groups for p in group["params"]]
+    loss = search_loss(disp, target, maxdisp, count)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
     # No gradient is left for the other side's optimizer to apply.
     model.zero_grad(set_to_none=True)
     loss.backward(inputs=params)
+    all_reduce_grads(params, group)
     optimizer.step()
-    disp = disp.detach()
-    return {
-        "loss": loss.item(),
-        "epe": epe(disp, target, maxdisp).item(),
-        "err3": three_px_error(disp, target, maxdisp).item(),
-    }
+    return global_metrics(disp.detach(), target, maxdisp, group, loss)
 
 
 def weight_step(
-    model: torch.nn.Module, optimizer: torch.optim.Optimizer, batch: dict, maxdisp: int, lr: float
+    model: torch.nn.Module,
+    optimizer: torch.optim.Optimizer,
+    batch: dict,
+    maxdisp: int,
+    lr: float,
+    mesh: Mesh | None = None,
 ) -> dict[str, float]:
     """One weight update at learning rate ``lr`` on a batch of NHWC ``left``,
     ``right`` and ``(B, H, W)`` ``disparity``. Alphas and betas do not move.
-    Returns the loss, EPE and 3-px error of the train-mode disparity."""
+    Returns the loss, EPE and 3-px error of the train-mode disparity; with
+    ``mesh``, the data-parallel step on this rank's rows (module docstring)."""
     for group in optimizer.param_groups:
         group["lr"] = lr
-    return _step(model, optimizer, batch, maxdisp)
+    return _step(model, optimizer, batch, maxdisp, mesh)
 
 
-def arch_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer, batch: dict, maxdisp: int) -> dict[str, float]:
+def arch_step(
+    model: torch.nn.Module, optimizer: torch.optim.Optimizer, batch: dict, maxdisp: int, mesh: Mesh | None = None
+) -> dict[str, float]:
     """One arch update (alphas, betas) on a batch; the weights do not move."""
-    return _step(model, optimizer, batch, maxdisp)
+    return _step(model, optimizer, batch, maxdisp, mesh)

@@ -5,6 +5,15 @@ The state of a run is the model's parameters and buffers, the optimizer and
 the count of updates taken: no ``TrainState`` object. The learning rate of
 update ``k`` (0-based) is ``schedule(k)``, as optax's count gives it, so with
 warmup the first update has lr 0.
+
+Data-parallel (``mesh``, as the JAX steps over a mesh's ``data`` axis): the
+batch is this rank's rows of the global batch, BatchNorm normalises with the
+global batch's statistics (sync-BN, ``ops/convbr.py``), the loss is the
+global masked mean (this rank's sum over the all-reduced valid-pixel count,
+so ranks with different numbers of valid pixels weigh as in one batch), the
+gradients are summed over the data group in one all_reduce, and the metrics
+are global. The replicas start equal (``parallel.broadcast_module``) and
+stay so: every rank applies the same summed gradient.
 """
 
 from __future__ import annotations
@@ -14,10 +23,12 @@ from collections.abc import Callable, Iterable
 
 import torch
 
-from .losses import edge_aware_smoothness_loss, masked_smooth_l1
+from ..ops.convbr import set_bn_group
+from ..parallel.mesh import Mesh, all_reduce, all_reduce_grads
+from .losses import edge_aware_smoothness_loss, masked_smooth_l1, validity_mask
 from .metrics import epe, three_px_error
 
-__all__ = ["make_lr_schedule", "make_optimizer", "train_step", "eval_step"]
+__all__ = ["make_lr_schedule", "make_optimizer", "train_step", "eval_step", "global_metrics"]
 
 
 def make_lr_schedule(
@@ -97,6 +108,33 @@ def _to_model(batch: dict, model: torch.nn.Module) -> tuple[torch.Tensor, torch.
     return tuple(torch.as_tensor(batch[k]).to(device) for k in ("left", "right", "disparity"))
 
 
+def _data_group(mesh: Mesh | None):
+    return None if mesh is None else mesh.data_group
+
+
+def global_count(mask: torch.Tensor, group) -> torch.Tensor:
+    """The number of ``True`` in ``mask`` summed over ``group`` (float)."""
+    return all_reduce(mask.sum().float(), group)
+
+
+def global_metrics(
+    disp: torch.Tensor, target: torch.Tensor, maxdisp: int, group, loss: torch.Tensor | None = None
+) -> dict[str, float]:
+    """EPE and 3-px error over the rows of every rank of ``group`` (and the
+    global ``loss``, already this rank's share of it), in one all_reduce:
+    each rank's metric weighs by its share of the global valid pixels."""
+    out = {} if loss is None else {"loss": loss.detach()}
+    if group is None:
+        out.update(epe=epe(disp, target, maxdisp), err3=three_px_error(disp, target, maxdisp))
+        return {k: v.item() for k, v in out.items()}
+    mask = validity_mask(target, maxdisp)
+    share = mask.sum() / global_count(mask, group).clamp(min=1)
+    out.update(epe=epe(disp, target, maxdisp) * share, err3=(1.0 - three_px_error(disp, target, maxdisp)) * share)
+    v = dict(zip(out, all_reduce(torch.stack(list(out.values())).float(), group).tolist()))
+    v["err3"] = 1.0 - v["err3"]
+    return v
+
+
 def train_step(
     model: torch.nn.Module,
     optimizer: torch.optim.Optimizer,
@@ -104,36 +142,43 @@ def train_step(
     maxdisp: int,
     lr: float,
     edge_loss_w: float = 0.0,
+    mesh: Mesh | None = None,
 ) -> dict[str, float]:
     """One update at learning rate ``lr`` on a batch of NHWC ``left``,
     ``right`` and ``(B, H, W)`` ``disparity``: the train-mode forward, the
     masked smooth-L1 (plus ``edge_loss_w`` times the edge-aware term), the
     backward and the optimizer step. Returns the loss, and the EPE and
-    3-px error of the train-mode disparity, as floats."""
+    3-px error of the train-mode disparity, as floats.
+
+    With ``mesh``, ``batch`` is this rank's rows and the step is the data-
+    parallel step over ``mesh.data_group`` (module docstring): the returned
+    numbers are those of the global batch."""
     model.train()
+    group = _data_group(mesh)
+    set_bn_group(model, group)
     left, right, target = _to_model(batch, model)
-    for group in optimizer.param_groups:
-        group["lr"] = lr
+    for g in optimizer.param_groups:
+        g["lr"] = lr
+    count = None if group is None else global_count(validity_mask(target, maxdisp), group)
     disp = model(left, right).float()
-    loss = masked_smooth_l1(disp, target, maxdisp)
+    loss = masked_smooth_l1(disp, target, maxdisp, count)
     if edge_loss_w:
-        loss = loss + edge_loss_w * edge_aware_smoothness_loss(disp, target, maxdisp)
+        loss = loss + edge_loss_w * edge_aware_smoothness_loss(disp, target, maxdisp, count)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], group)
     optimizer.step()
-    disp = disp.detach()
-    return {
-        "loss": loss.item(),
-        "epe": epe(disp, target, maxdisp).item(),
-        "err3": three_px_error(disp, target, maxdisp).item(),
-    }
+    return global_metrics(disp.detach(), target, maxdisp, group, loss)
 
 
-def eval_step(model: torch.nn.Module, batch: dict, maxdisp: int) -> tuple[torch.Tensor, dict[str, float]]:
-    """Eval-mode disparity of a batch and its EPE and 3-px error."""
+def eval_step(
+    model: torch.nn.Module, batch: dict, maxdisp: int, mesh: Mesh | None = None
+) -> tuple[torch.Tensor, dict[str, float]]:
+    """Eval-mode disparity of a batch and its EPE and 3-px error; with
+    ``mesh``, of this rank's rows, and the metrics of the global batch."""
     model.eval()
     left, right, target = _to_model(batch, model)
     with torch.inference_mode():
         disp = model(left, right).float()
-        metrics = {"epe": epe(disp, target, maxdisp).item(), "err3": three_px_error(disp, target, maxdisp).item()}
+        metrics = global_metrics(disp, target, maxdisp, _data_group(mesh))
     return disp, metrics

@@ -10,7 +10,10 @@ the band kernel once per step; both heads pass ``torch.library.opcheck`` as
 custom ops on the card, a loaded KITTI ``.pt2`` launches the sm90 head
 once per frame, a search weight step and an arch step launch the band
 kernel once each, and remat gives the search step's loss, gradients and
-running statistics without it. Every test skips without a CUDA card. This file imports neither JAX
+running statistics without it; the disparity-sharded resize reproduces
+``F.interpolate`` bit for bit, and the sharded forward on a one-shard
+partition equals the unsharded plain-head forward bit for bit. Every test
+skips without a CUDA card. This file imports neither JAX
 nor the JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -413,3 +416,35 @@ def test_search_remat_matches_no_remat_on_card(dev):
     for k, v in sd_off.items():
         if "running" in k or "num_batches" in k:
             torch.testing.assert_close(sd_on[k], v, rtol=1e-6, atol=1e-7, msg=k)
+
+
+@pytest.mark.parametrize("src,dst", [((17, 16, 52), (34, 32, 104)), ((64, 128, 416), (32, 64, 208)),
+                                     ((68, 32, 104), (136, 128, 416)), ((9, 8, 10), (5, 4, 5))])
+def test_sharded_resize_is_interpolate_bit_for_bit(dev, src, dst):
+    """The slab resize's arithmetic is PyTorch's trilinear kernel's, so a
+    sharded volume's planes are the unsharded ones exactly (on one shard
+    here; each output plane's arithmetic does not depend on the slab)."""
+    from leastereo_tpu_torch.ops.resize import resize3d
+    from leastereo_tpu_torch.parallel import DispPartition
+
+    x = torch.randn(1, 8, *src, generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    want = torch.nn.functional.interpolate(x, size=dst, mode="trilinear", align_corners=True)
+    assert torch.equal(resize3d(x, dst, part=DispPartition(src[0])), want)
+
+
+@pytest.mark.parametrize("maxdisp", [48, 408])
+def test_sharded_forward_on_one_shard_is_unsharded(dev, maxdisp):
+    """``cost_volume_pspec`` without a mesh runs the slab path on one shard:
+    halo-padded convolutions, the sharded resize and head, no head kernel.
+    In fp32 it equals the plain-head forward bit for bit."""
+    rng = np.random.RandomState(0)
+    left, right = (torch.from_numpy(rng.randn(1, 96, 192, 3).astype(np.float32)).to(dev) for _ in range(2))
+    plain = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="float32", pallas_head=False))
+    sharded = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="float32",
+                                                   cost_volume_pspec=("data", "disp")))
+    sharded.load_state_dict(plain.state_dict())
+    counts = (conv_soft_argmin_sm90.launches, conv_soft_argmin_sm90_f32.launches, soft_argmin_cuda.launches)
+    with torch.inference_mode():
+        want, got = plain(left, right), sharded(left, right)
+    assert (conv_soft_argmin_sm90.launches, conv_soft_argmin_sm90_f32.launches, soft_argmin_cuda.launches) == counts
+    assert torch.isfinite(got).all() and torch.equal(got, want)

@@ -1,0 +1,151 @@
+"""The port's drivers with the mesh flags, on the CPU (gloo): the driver
+spawns its own ranks as local processes (``cli/common.py`` ``run_on_mesh``).
+On the synthetic SceneFlow tree and tiny architecture of
+``tests/test_cli.py`` (24x48 crop, maxdisp 24, float32):
+
+* ``cli.predict --mesh_disp 2`` writes the disparity of the one-process run;
+* ``cli.evaluate --mesh_data 2`` splits the frames and prints the averages
+  of the one-process run, with the same files;
+* ``cli.train --mesh_data 2`` spawns its ranks, takes 2 steps and only rank
+  0 writes checkpoints and logs; ``--multihost`` under torchrun's variables
+  for a world of one joins and leaves a gloo group;
+* what the drivers refuse: ``--mesh_disp > 1`` in train and search, and on
+  ``cuda`` a mesh larger than the cards.
+"""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from leastereo_tpu_torch.cli import evaluate, predict, search, train
+from leastereo_tpu_torch.cli.common import build_model
+from leastereo_tpu_torch.cli.config import predict_parser
+from leastereo_tpu_torch.utils.checkpoint import load_state_dict_file
+from test_cli import CROP_H, CROP_W, MAXDISP, _data_args, _model_args, workspace  # noqa: F401  (workspace: fixture)
+
+TOL_PX = 1e-4  # the sharded head sums in another order
+TOL_SAME = 1e-5  # one model, one frame, ranks on one intra-op thread against the test's process
+
+
+@pytest.fixture(scope="module")
+def checkpoint(workspace):  # noqa: F811
+    """The tiny model's seeded weights with the last_3 kernel scaled so the
+    cost spans a few units (as tests/test_torch_cli.py), as a torch file."""
+    root, _, _ = workspace
+    model = build_model(predict_parser().parse_args(_model_args(root) + _data_args(root) + ["--device", "cpu"]))
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, CROP_H, CROP_W, 3).astype(np.float32))
+    with torch.no_grad():
+        feats = model.feature(x.permute(0, 3, 1, 2))
+        cost = model.matching.last_3(model.matching(feats[:1], feats[1:], MAXDISP // 3))
+        model.matching.last_3.conv.weight.mul_(3.0 / cost.std())
+    path = root / "parallel_weights.pth"
+    torch.save(model.state_dict(), path)
+    return path
+
+
+@pytest.fixture(autouse=True)
+def one_thread_ranks(monkeypatch):
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+
+
+def _arrays(d):
+    return {p.name: np.load(p) for p in sorted(d.glob("*.npy"))}
+
+
+def test_predict_disparity_sharded_matches_one_process(workspace, checkpoint, tmp_path):  # noqa: F811
+    root, _, _ = workspace
+    base = _model_args(root) + _data_args(root) + ["--device", "cpu", "--checkpoint", str(checkpoint),
+                                                    "--confidence"]
+    assert predict.main(base + ["--output_dir", str(tmp_path / "one")]) == 0
+    assert predict.main(base + ["--mesh_disp", "2", "--output_dir", str(tmp_path / "two")]) == 0
+    one, two = _arrays(tmp_path / "one"), _arrays(tmp_path / "two")
+    assert one.keys() == two.keys() and len(one) == 4  # 2 frames: disparity and confidence
+    assert sorted(os.listdir(tmp_path / "one")) == sorted(os.listdir(tmp_path / "two"))
+    for name in one:
+        assert one[name].std() > 0
+        np.testing.assert_allclose(two[name], one[name], rtol=TOL_PX, atol=TOL_PX, err_msg=name)
+
+
+def test_evaluate_data_parallel_matches_one_process(workspace, checkpoint, tmp_path, capfd):  # noqa: F811
+    root, _, _ = workspace
+    base = _model_args(root) + _data_args(root) + ["--device", "cpu", "--checkpoint", str(checkpoint),
+                                                    "--split", "train"]
+
+    def averages(out: str) -> list[str]:
+        lines = out.splitlines()
+        return lines[lines.index("=== averages ===") :]
+
+    assert evaluate.main(base + ["--output_dir", str(tmp_path / "one")]) == 0
+    want = averages(capfd.readouterr().out)
+    assert evaluate.main(base + ["--mesh_data", "2", "--output_dir", str(tmp_path / "two")]) == 0
+    out = capfd.readouterr().out
+    assert out.count("=== averages ===") == 1  # rank 0 alone prints them
+    one, two = _arrays(tmp_path / "one"), _arrays(tmp_path / "two")
+    assert len(one) == 4 and sorted(os.listdir(tmp_path / "one")) == sorted(os.listdir(tmp_path / "two"))
+    for name in one:
+        np.testing.assert_allclose(two[name], one[name], rtol=TOL_SAME, atol=TOL_SAME, err_msg=name)
+    assert averages(out) == want
+
+
+def test_train_data_parallel_driver(workspace, tmp_path):  # noqa: F811
+    root, _, _ = workspace
+    argv = _model_args(root) + _data_args(root) + [
+        "--device", "cpu", "--mesh_data", "2", "--batch_size", "4", "--test_batch_size", "1", "--epochs", "2",
+        "--loop_mode", "n_epochs", "--ckpt_period", "0", "--experiment", "dp", "--run_root", str(tmp_path),
+    ]
+    assert train.main(argv) == 0
+    exp = tmp_path / "sceneflow-train" / "dp"
+    lines = [json.loads(line) for line in (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
+    steps = [line for line in lines if "loss" in line]
+    assert [line["step"] for line in steps] == [1] and np.isfinite(steps[0]["loss"])  # logged once, by rank 0
+    assert [line["epoch"] for line in lines if "val_epe" in line] == [0, 1]
+    ckpts = exp / "checkpoints"
+    assert sorted(p.relative_to(ckpts).as_posix() for p in ckpts.rglob("*.pth"))[-1] == "final/2.pth"
+    model = build_model(predict_parser().parse_args(_model_args(root) + _data_args(root) + ["--device", "cpu"]))
+    load_state_dict_file(str(ckpts / "final" / "2.pth"), model)
+    assert int(model.matching.stem1.bn.num_batches_tracked) == 2  # two steps
+
+
+def test_train_under_a_launcher_world_of_one(workspace, tmp_path, monkeypatch):  # noqa: F811
+    """``--multihost`` with torchrun's variables for a world of one: the
+    driver joins a gloo group, its data axis reduces over it (sync-BN, the
+    gradients and the metrics go through all_reduce), and it leaves the group."""
+    import socket
+
+    import torch.distributed as dist
+
+    root, _, _ = workspace
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "WORLD_SIZE": "1", "RANK": "0"}.items():
+        monkeypatch.setenv(k, v)
+    calls = []
+    monkeypatch.setattr(dist, "all_reduce", lambda *a, _f=dist.all_reduce, **k: calls.append(1) or _f(*a, **k))
+    argv = _model_args(root) + _data_args(root) + [
+        "--device", "cpu", "--multihost", "--batch_size", "4", "--epochs", "1", "--loop_mode", "n_epochs",
+        "--ckpt_period", "0", "--experiment", "launched", "--run_root", str(tmp_path),
+    ]
+    assert train.main(argv) == 0
+    assert not dist.is_initialized()
+    assert len(calls) > 10  # BN statistics of every layer, the count, the gradients, the metrics
+    assert (tmp_path / "sceneflow-train" / "launched" / "checkpoints" / "final" / "1.pth").is_file()
+
+
+@pytest.mark.parametrize("driver", [train, search])
+def test_disparity_sharded_training_refused(workspace, driver):  # noqa: F811
+    root, _, _ = workspace
+    args = _data_args(root) + ["--device", "cpu", "--mesh_disp", "2"]
+    with pytest.raises(NotImplementedError, match="mesh_disp"):
+        driver.main(args)
+
+
+def test_cuda_mesh_needs_a_card_per_rank(workspace, monkeypatch):  # noqa: F811
+    root, _, _ = workspace
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="needs 2 CUDA cards"):
+        predict.main(_model_args(root) + _data_args(root) + ["--mesh_data", "2"])

@@ -358,8 +358,12 @@ def test_batch_iterator_matches_jax(tree, shuffle, drop_last, workers, monkeypat
         for g, t in zip(got, on_device):
             for k in g:
                 assert t[k].dtype == torch.float32 and np.array_equal(t[k].numpy(), g[k])
-    with pytest.raises(ValueError, match="one process"):
-        next(batch_iterator(port_ds, 4, process_count=2))
+    # Two processes each load their rows of every global batch, as in JAX.
+    for index in (0, 1):
+        it = dict(shuffle=shuffle, seed=3, num_workers=workers, process_index=index, process_count=2)
+        got, want = list(batch_iterator(port_ds, 4, **it)), list(jax_batches(jax_ds, 4, **it))
+        assert len(got) == len(want) == 1 and got[0]["left"].shape[0] == 2
+        assert all(np.array_equal(got[0][k], want[0][k]) for k in want[0])
 
 
 def test_make_loader_steps(tree):
