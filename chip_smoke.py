@@ -11,7 +11,8 @@ caught, so any failure exits non-zero):
 3. kernels: each kernel on the card at the KITTI main-path shapes against
    its plain PyTorch version evaluated in float64, on peaky (trained-like),
    wide (the peaky cost scaled 10x, a span of hundreds of units) and
-   diffuse inputs: the sm90 fused head (bf16 volume), the fp32 sm90 fused
+   diffuse inputs (the checks of ``leastereo_tpu_torch/utils/kernel_parity.py``):
+   the sm90 fused head (bf16 volume), the fp32 sm90 fused
    head (fp32 volume), the first fused head design (fp32 and bf16 volumes)
    and the band kernel; the band kernel and both sm90 heads on a 300x cost
    beside the fp32 plain version, all against float64 (a measurement: there
@@ -22,8 +23,10 @@ caught, so any failure exits non-zero):
    ``last_3`` with TF32 off + band kernel), the band kernel's grid and
    occupancy, and the first design's time at shapes that show what limits it.
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
-   eval, random seeded weights: the default forward (sm90 fused head, once
-   per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
+   eval, random seeded weights: first the in-model fused path of
+   ``kernel_parity`` (the model's map against float64 on the volume and
+   kernel it hands its head, the ``last_3`` kernel as calibrated, 10x and
+   0.1x), then the default forward (sm90 fused head, once per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
    kernel). Launch counts are zeroed just before and read just after.
 5. layers and profile: per-layer times and the device's busy share; four
    fp32 KITTI frames' device time and the fp32 sm90 head's share of it (one
@@ -108,7 +111,16 @@ caught, so any failure exits non-zero):
    --multihost`` at world size 1 over NCCL (NCCL refuses two ranks on one
    device, so this is all of NCCL one card can show): 3 steps, the band
    kernel once per step, the sm90 head once per val frame, the checkpoint
-   written. The phase starts its ranks as ``chip_smoke.py --rank ...``.
+   written; (d) disparity-sharded training, the Middlebury fine-tune of
+   ``scripts/train_md.sh`` (full width, 384x576 crops, maxdisp 408, batch 2,
+   seeded synthetic batches) on the two ranks over a data 1 x disp 2 mesh:
+   three fp32 SGD steps (TF32 off) against one process on the same global
+   batches, with the bounds of (b); eight bf16 Adam steps timed (median
+   step ms from step 2, the last step's all_reduces clocked by the layer
+   that called them, each rank's peak memory) beside four in one process;
+   no head kernel launched in any sharded step (counts zeroed just before,
+   read just after), as JAX gates its kernels off under a pspec. The phase
+   starts its ranks as ``chip_smoke.py --rank ...``.
 
 Then the kernel table, the card line and, last, the result line. Exits
 non-zero without printing a result when no CUDA card is present.
@@ -130,6 +142,9 @@ import time
 import numpy as np
 import torch
 
+from leastereo_tpu_torch.utils import kernel_parity
+from leastereo_tpu_torch.utils.kernel_parity import WIDE, calibrate_head, head_inputs, peaky_cost
+
 # Published H100 SXM peaks (NVIDIA data sheet, dense): memory 3.35 TB/s,
 # bf16 tensor cores 989 TFLOP/s, fp32 CUDA cores 67 TFLOP/s. Special-function
 # units (exp2): 16 results per clock per SM (CUDA C++ Programming Guide,
@@ -149,7 +164,7 @@ KERNEL_GROUPS = (
     ("gathers (fused stem)", ("index", "gather")),
     ("elementwise (add, relu, cast, cat)", ("elementwise", "CatArray", "reduce")),
 )
-TOL_KERNEL_PX = 2e-3  # kernels against float64 plain versions
+TOL_KERNEL_PX = kernel_parity.ATOL_PX  # kernels against float64 plain versions
 SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
@@ -198,6 +213,15 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def emit_check(check: dict) -> None:
+    """A ``kernel_parity`` check as a ``kernel_check`` line (its error and
+    tolerance as ``max_abs_err_px`` and ``tol_px``); raises if it failed."""
+    rest = {k: v for k, v in check.items() if k not in ("check", "max_abs_err", "atol", "ok")}
+    emit({"phase": "kernel_check", **rest, "max_abs_err_px": check["max_abs_err"], "tol_px": check["atol"]})
+    if not check["ok"]:
+        raise AssertionError(f"{check['check']}: {check['max_abs_err']} px")
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls (CUDA events)."""
     for _ in range(warmup):
@@ -232,32 +256,7 @@ def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def peaky_cost(gen, b, d, h, w, dev):
-    """Trained-like unimodal cost plus noise (as tests/test_pallas_softargmin.py)."""
-    best = torch.randint(0, d, (b, 1, h, w), generator=gen, device=dev)
-    planes = torch.arange(d, device=dev).view(1, d, 1, 1)
-    return 0.35 * (planes - best).abs().float() + 0.8 * torch.randn(b, d, h, w, generator=gen, device=dev)
-
-
-WIDE = 10.0  # scale of the "wide" inputs' cost (a span of ~250 units at D = 64)
 SPAN_300 = 300.0  # scale of the cost in phase wide_span_300x
-
-
-def head_inputs(gen, kind, b, c, d, h, w, dev):
-    """Pre-head volume (B, C, D, h, w) and last_3 kernel (1, C, 3, 3, 3).
-    "peaky": channel 0 carries a trained-like cost that the kernel's centre
-    tap passes through; "wide": the same with the kernel scaled WIDE times;
-    "diffuse": random volume and kernel."""
-    vol = 0.5 * torch.randn(b, c, d, h, w, generator=gen, device=dev)
-    if kind in ("peaky", "wide"):
-        vol[:, 0] = peaky_cost(gen, b, d, h, w, dev)
-        kern = 0.02 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
-        kern[0, 0, 1, 1, 1] += 1.0
-        if kind == "wide":
-            kern *= WIDE
-    else:
-        kern = 0.2 * torch.randn(1, c, 3, 3, 3, generator=gen, device=dev)
-    return vol, kern
 
 
 def _timed(fn, ms: list):
@@ -889,7 +888,8 @@ def search_phase(counters: dict, card: str) -> dict:
 # (two processes on the card) and NCCL at world size 1. (a) The disparity-
 # sharded KITTI frame against the one-process frame with the plain head (the
 # maths the sharded head shares), fp32, TF32 off; (b) three data-parallel
-# steps at the fine-tune shapes against one process on the same global batches.
+# steps at the fine-tune shapes and (d) three disparity-sharded steps at the
+# Middlebury recipe's against one process on the same global batches.
 PAR_RANKS = 2
 PAR_MAXDISPS = (192, 408)
 TOL_PAR_PX = 1e-3
@@ -908,13 +908,47 @@ PAR_STEPS = 3
 TOL_PAR_LOSS = 1e-4
 PAR_NOISE_FACTOR = 2.0
 PAR_LR = 1e-3
+# (d) The Middlebury fine-tune of scripts/train_md.sh (BASELINE.md:23):
+# 384x576 crops, maxdisp 408 (D = 136 planes, 68 a rank), batch 2, Adam 1e-3,
+# on seeded synthetic batches (the repo holds no Middlebury frames). Parity:
+# MD_PARITY_STEPS fp32 SGD steps (TF32 off) with the bounds of (b); timing:
+# MD_TIMED_STEPS bf16 Adam steps on the two ranks, the last with its
+# collectives clocked, and MD_ONE_STEPS in one process beside them.
+MD_H, MD_W, MD_MAXDISP, MD_B, MD_LR = 384, 576, 408, 2, 1e-3
+MD_PARITY_STEPS, MD_TIMED_STEPS, MD_ONE_STEPS = 3, 8, 4
+MD_SEED = 408
+
+
+def _collective_kind() -> str:
+    """The layer that called ``all_reduce``: the first frame, from the caller
+    outwards, that names one."""
+    f = sys._getframe(2)
+    while f is not None:
+        path, fn = f.f_code.co_filename, f.f_code.co_name
+        if path.endswith("halo.py"):
+            return "halo exchange and adjoint"
+        if path.endswith("softargmin.py"):
+            return "head"
+        if path.endswith(os.path.join("distributed", "nn", "functional.py")):
+            return "BN statistics"  # sync-BN's differentiable all_reduce, forward and backward
+        if fn == "all_reduce_grads":
+            return "gradient sum"
+        if fn in ("global_count", "global_metrics"):
+            return "count and metrics"
+        f = f.f_back
+    return "other"
+
+
+def new_clock() -> dict:
+    return {"ms": 0.0, "calls": 0, "kinds": {}}
 
 
 @contextlib.contextmanager
 def collective_clock(stats: dict):
     """While the block runs, time every ``torch.distributed.all_reduce`` (the
     exchange, sync-BN, gradients and metrics all call it) with the card
-    synchronised on either side: ``stats["ms"]``, ``stats["calls"]``."""
+    synchronised on either side: ``stats["ms"]``, ``stats["calls"]``, and
+    both by the layer that called it (``stats["kinds"]``)."""
     import torch.distributed as dist
 
     orig = dist.all_reduce
@@ -924,8 +958,11 @@ def collective_clock(stats: dict):
         t0 = time.perf_counter()
         out = orig(*args, **kwargs)
         torch.cuda.synchronize()
-        stats["ms"] += 1e3 * (time.perf_counter() - t0)
-        stats["calls"] += 1
+        ms = 1e3 * (time.perf_counter() - t0)
+        kind = stats["kinds"].setdefault(_collective_kind(), {"calls": 0, "ms": 0.0})
+        for d in (stats, kind):
+            d["ms"] += ms
+            d["calls"] += 1
         return out
 
     dist.all_reduce = timed
@@ -933,6 +970,15 @@ def collective_clock(stats: dict):
         yield stats
     finally:
         dist.all_reduce = orig
+
+
+def head_counters() -> dict:
+    """The launch counters of the four head kernels, by kernel."""
+    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+
+    return {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
+            "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
 
 
 def _par_rows(batch: dict, rank: int, world: int, order=None) -> dict:
@@ -946,49 +992,66 @@ def _par_rows(batch: dict, rank: int, world: int, order=None) -> dict:
     return out
 
 
-def par_train_run(sd: dict, batches: list, order, lr: float, mesh=None, rank: int = 0, world: int = 1):
-    """``PAR_STEPS`` SGD steps (fp32) on this rank's rows of ``batches``:
-    the losses, step 1's flat gradient, the band kernel's launches, and with
-    a mesh the collectives' ms and calls of the last step."""
+def train_run(sd: dict, batches: list, lr: float, *, maxdisp: int = 192, dtype: str = "float32",
+              solver: str = "sgd", order=None, mesh=None, rank: int = 0, world: int = 1,
+              sharded: bool = False, clock_last: bool = False) -> dict:
+    """Train steps of ``BEST_SCENEFLOW`` at full width on this rank's rows
+    of ``batches`` (rows ``rank`` of ``world``; all rows with ``world`` 1,
+    as the disp ranks of a data row hold), over ``mesh`` when given and
+    disparity-sharded with ``sharded``: the losses, step 1's flat gradient
+    (fp32), each step's ms, the head kernels' launches (zeroed just before
+    the steps, read just after), the last step's collectives with
+    ``clock_last``, and the peak memory."""
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
-    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
     from leastereo_tpu_torch.train import make_optimizer, train_step
 
-    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"))
+    pspec = ("data", "disp") if sharded else None
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype=dtype, cost_volume_pspec=pspec))
     model.load_state_dict(sd)
-    opt = make_optimizer(model.parameters(), "sgd", lr, momentum=0.9)
-    losses, grad1, clock = [], None, {"ms": 0.0, "calls": 0}
-    soft_argmin_cuda.launches = 0
-    step_ms = []
+    model.mesh = mesh
+    opt = make_optimizer(model.parameters(), solver, lr, momentum=0.9)
+    heads = head_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, grad1, clock = [], [], None, new_clock()
+    for fn in heads.values():
+        fn.launches = 0
     for i, batch in enumerate(batches):
         rows = _par_rows(batch, rank, world, order)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with collective_clock(clock) if (mesh is not None and i == len(batches) - 1) else contextlib.nullcontext():
-            losses.append(train_step(model, opt, rows, 192, lr, mesh=mesh)["loss"])
+        with collective_clock(clock) if (clock_last and i == len(batches) - 1) else contextlib.nullcontext():
+            losses.append(train_step(model, opt, rows, maxdisp, lr, mesh=mesh)["loss"])
         torch.cuda.synchronize()
         step_ms.append(1e3 * (time.perf_counter() - t0))
-        if i == 0:
+        if i == 0 and dtype == "float32":
             grad1 = torch.cat([p.grad.detach().double().flatten() for p in model.parameters()]).cpu()
-    return {"losses": losses, "grad1": grad1, "band_launches": soft_argmin_cuda.launches, "step_ms": step_ms,
-            "collective_ms_last_step": clock["ms"], "collective_calls_last_step": clock["calls"],
-            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return {"losses": losses, "grad1": grad1, "step_ms": step_ms, "clock": clock,
+            "launches": {k: fn.launches for k, fn in heads.items()}, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def md_batch(seed: int) -> dict:
+    """A seeded global batch at the Middlebury recipe's shapes: targets up to
+    maxdisp 408, one pixel in 15 invalid (0)."""
+    rng = np.random.RandomState(seed)
+    target = rng.uniform(0.5, MD_MAXDISP - 8.0, size=(MD_B, MD_H, MD_W)).astype(np.float32)
+    target[:, ::5, ::3] = 0.0
+    return {"left": rng.randn(MD_B, MD_H, MD_W, 3).astype(np.float32),
+            "right": rng.randn(MD_B, MD_H, MD_W, 3).astype(np.float32), "disparity": target}
 
 
 def rank_main(argv: list) -> int:
     """One rank of phase 12, run as ``chip_smoke.py --rank RANK WORLD PORT DIR``:
-    the sharded frames of (a), then the data-parallel steps of (b), on card 0
-    over gloo. Writes ``DIR/out{RANK}.pt``."""
+    the sharded frames of (a), the data-parallel steps of (b), then the
+    disparity-sharded train steps of (d), on card 0 over gloo. Writes
+    ``DIR/out{RANK}.pt``."""
     rank, world, port, work = int(argv[0]), int(argv[1]), argv[2], pathlib.Path(argv[3])
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
-    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32
-    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
     from leastereo_tpu_torch.parallel import initialize, make_mesh
 
-    heads = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
-             "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
+    heads = head_counters()
     initialize(f"127.0.0.1:{port}", world, rank, backend="gloo", device="cuda")
     inp = torch.load(work / "in.pt", weights_only=False)
     left, right = (torch.from_numpy(inp[k]).cuda() for k in ("left", "right"))
@@ -1028,7 +1091,7 @@ def rank_main(argv: list) -> int:
             disp = model(left, right)
         torch.cuda.synchronize()
         out["bf16_ms_per_frame"] = 1e3 * (time.perf_counter() - t0) / n
-        with collective_clock({"ms": 0.0, "calls": 0}) as clock:
+        with collective_clock(new_clock()) as clock:
             disp = model(left, right)
     out["bf16_frames"] = 2 + n + 1
     out["bf16_launches"] = {k: fn.launches for k, fn in heads.items()}
@@ -1039,8 +1102,14 @@ def rank_main(argv: list) -> int:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     # (b) the data-parallel steps over the data axis.
-    out["train"] = par_train_run(inp["sd_train"], inp["batches"], None, inp["lr"],
-                                 make_mesh(data=world, disp=1), rank, world)
+    out["train"] = train_run(inp["sd_train"], inp["batches"], inp["lr"], mesh=make_mesh(data=world, disp=1),
+                             rank=rank, world=world, clock_last=True)
+    # (d) the Middlebury fine-tune disparity-sharded over the two ranks: the
+    # fp32 SGD parity steps, then the bf16 recipe timed.
+    md = dict(maxdisp=MD_MAXDISP, mesh=mesh, sharded=True)
+    out["md_parity"] = train_run(inp["sd_md"], inp["md_batches"], inp["lr"], **md)
+    out["md_timed"] = train_run(inp["sd_md"], [md_batch(MD_SEED + i) for i in range(MD_TIMED_STEPS)], MD_LR,
+                                dtype="bfloat16", solver="adam", clock_last=True, **md)
     torch.save(out, work / f"out{rank}.pt")
     import torch.distributed as dist
 
@@ -1049,9 +1118,10 @@ def rank_main(argv: list) -> int:
 
 
 def parallel_phase(counters: dict, card: str) -> dict:
-    """Phase 12: (a) the disparity-sharded KITTI frame and (b) data-parallel
-    steps on two gloo ranks of the card, each held against one process;
-    (c) ``cli.train --multihost`` at world size 1 over NCCL."""
+    """Phase 12: (a) the disparity-sharded KITTI frame, (b) data-parallel
+    steps and (d) disparity-sharded Middlebury train steps on two gloo ranks
+    of the card, each held against one process; (c) ``cli.train
+    --multihost`` at world size 1 over NCCL."""
     import socket
 
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
@@ -1093,8 +1163,21 @@ def parallel_phase(counters: dict, card: str) -> dict:
     calibrate_head(train_model, left[:, :TRAIN_H, :TRAIN_W], right[:, :TRAIN_H, :TRAIN_W])
     inp["sd_train"] = {k: v.cpu() for k, v in train_model.state_dict().items()}
     del train_model
-    one = par_train_run(inp["sd_train"], batches, None, inp["lr"])
-    reordered = par_train_run(inp["sd_train"], batches, [2, 3, 0, 1], inp["lr"])
+    one = train_run(inp["sd_train"], batches, inp["lr"])
+    reordered = train_run(inp["sd_train"], batches, inp["lr"], order=[2, 3, 0, 1])
+    torch.cuda.empty_cache()
+    # (d) references: the recipe's weights (last_3 calibrated on a crop of
+    # the frame), the fp32 SGD steps in one process in order and with each
+    # batch's rows swapped, and the bf16 recipe's steps in one process.
+    md_model = best_sceneflow_model(LEAStereoConfig(maxdisp=MD_MAXDISP, compute_dtype="float32"), seed=MD_SEED)
+    calibrate_head(md_model, left[:, :MD_H, :MD_W], right[:, :MD_H, :MD_W])
+    inp["sd_md"] = {k: v.cpu() for k, v in md_model.state_dict().items()}
+    del md_model
+    inp["md_batches"] = [md_batch(MD_SEED + 100 + i) for i in range(MD_PARITY_STEPS)]
+    md_one = train_run(inp["sd_md"], inp["md_batches"], PAR_LR, maxdisp=MD_MAXDISP)
+    md_reordered = train_run(inp["sd_md"], inp["md_batches"], PAR_LR, maxdisp=MD_MAXDISP, order=[1, 0])
+    md_one_bf16 = train_run(inp["sd_md"], [md_batch(MD_SEED + i) for i in range(MD_ONE_STEPS)], MD_LR,
+                            maxdisp=MD_MAXDISP, dtype="bfloat16", solver="adam")
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as work:
@@ -1160,14 +1243,14 @@ def parallel_phase(counters: dict, card: str) -> dict:
                "rank_losses": [o["train"]["losses"] for o in outs],
                "step1_grad_rel_l2": [rel(o["train"]["grad1"], one["grad1"]) for o in outs],
                "step1_grad_rel_l2_reordered": floor_grad,
-               "band_launches_per_rank": [o["train"]["band_launches"] for o in outs],
-               "one_process_band_launches": one["band_launches"],
+               "band_launches_per_rank": [o["train"]["launches"]["band_soft_argmin"] for o in outs],
+               "one_process_band_launches": one["launches"]["band_soft_argmin"],
                "step_ms_per_rank": [o["train"]["step_ms"] for o in outs], "one_process_step_ms": one["step_ms"],
-               "all_reduce_ms_last_step": [o["train"]["collective_ms_last_step"] for o in outs],
-               "all_reduce_calls_last_step": [o["train"]["collective_calls_last_step"] for o in outs],
+               "all_reduce_ms_last_step": [o["train"]["clock"]["ms"] for o in outs],
+               "all_reduce_calls_last_step": [o["train"]["clock"]["calls"] for o in outs],
                "peak_gb_per_rank": [o["train"]["peak_gb"] for o in outs],
                "tol": {"step1_loss_rel": TOL_PAR_LOSS, "noise_factor": PAR_NOISE_FACTOR}, "ranks_seconds": ranks_s}
-    ok = all(o["train"]["band_launches"] == PAR_STEPS for o in outs) and one["band_launches"] == PAR_STEPS
+    ok = all(n == PAR_STEPS for n in dp_line["band_launches_per_rank"]) and dp_line["one_process_band_launches"] == PAR_STEPS
     for o in outs:
         got = o["train"]["losses"]
         ok &= abs(got[0] - one["losses"][0]) <= TOL_PAR_LOSS * abs(one["losses"][0])
@@ -1178,6 +1261,51 @@ def parallel_phase(counters: dict, card: str) -> dict:
     emit(dp_line)
     if not ok:
         raise AssertionError(f"phase 12b: {dp_line}")
+
+    # (d) the Middlebury fine-tune on the two ranks: parity against one
+    # process, no head kernel, the bf16 recipe's step ms and collectives.
+    from leastereo_tpu_torch.parallel import DispPartition
+
+    mds = [(o["md_parity"], o["md_timed"]) for o in outs]
+    floor_md = rel(md_reordered["grad1"], md_one["grad1"])
+    md_line = {"phase": "parallel_sharded_train", "card": card, "shape": [MD_B, MD_H, MD_W], "maxdisp": MD_MAXDISP,
+               "ranks": PAR_RANKS, "mesh": {"data": 1, "disp": PAR_RANKS},
+               "planes_per_rank": {n: DispPartition(n, PAR_RANKS).bounds for n in (136, 68, 34)},
+               "recipe": "scripts/train_md.sh: 384x576 crops, maxdisp 408, batch 2, Adam 1e-3; seeded synthetic batches",
+               "parity": {"dtype": "float32", "tf32": False, "optimizer": f"sgd {PAR_LR}, momentum 0.9",
+                          "steps": MD_PARITY_STEPS, "one_process_losses": md_one["losses"],
+                          "reordered_losses": md_reordered["losses"], "rank_losses": [p["losses"] for p, _ in mds],
+                          "step1_grad_rel_l2": [rel(p["grad1"], md_one["grad1"]) for p, _ in mds],
+                          "step1_grad_rel_l2_reordered": floor_md,
+                          "one_process_step_ms": md_one["step_ms"], "one_process_peak_gb": md_one["peak_gb"],
+                          "step_ms_per_rank": [p["step_ms"] for p, _ in mds],
+                          "peak_gb_per_rank": [p["peak_gb"] for p, _ in mds],
+                          "tol": {"step1_loss_rel": TOL_PAR_LOSS, "noise_factor": PAR_NOISE_FACTOR}},
+               "timed": {"dtype": "bfloat16", "optimizer": f"adam {MD_LR}", "steps": MD_TIMED_STEPS,
+                         "losses_per_rank": [t["losses"] for _, t in mds],
+                         "step_ms_per_rank": [t["step_ms"] for _, t in mds],
+                         "median_step_ms_2_on_per_rank": [float(np.median(t["step_ms"][1:-1])) for _, t in mds],
+                         "last_step_all_reduce": [t["clock"] for _, t in mds],
+                         "peak_gb_per_rank": [t["peak_gb"] for _, t in mds],
+                         "one_process_steps": MD_ONE_STEPS, "one_process_step_ms": md_one_bf16["step_ms"],
+                         "one_process_median_step_ms_2_on": float(np.median(md_one_bf16["step_ms"][1:])),
+                         "one_process_peak_gb": md_one_bf16["peak_gb"], "one_process_losses": md_one_bf16["losses"],
+                         "note": "median over steps 2 to 7; step 8 runs with every all_reduce clocked (card "
+                                 "synchronised around each), by the layer that called it"},
+               "launches_per_rank": [{k: p["launches"][k] + t["launches"][k] for k in counters} for p, t in mds]}
+    ok = all(p["launches"] == zero and t["launches"] == zero for p, t in mds)
+    for p, t in mds:
+        ok &= abs(p["losses"][0] - md_one["losses"][0]) <= TOL_PAR_LOSS * abs(md_one["losses"][0])
+        ok &= all(abs(g - w) <= PAR_NOISE_FACTOR * abs(r - w) + 1e-5 * abs(w)
+                  for g, w, r in zip(p["losses"], md_one["losses"], md_reordered["losses"]))
+        ok &= rel(p["grad1"], md_one["grad1"]) <= PAR_NOISE_FACTOR * floor_md + 1e-6
+        ok &= len(t["losses"]) == MD_TIMED_STEPS and all(math.isfinite(x) for x in t["losses"])
+    ok &= mds[0][0]["losses"] == mds[1][0]["losses"] and mds[0][1]["losses"] == mds[1][1]["losses"]
+    ok &= all("other" not in t["clock"]["kinds"] for _, t in mds)  # each all_reduce named by its layer
+    ok &= all(math.isfinite(x) for x in md_one_bf16["losses"])
+    emit(md_line)
+    if not ok:
+        raise AssertionError(f"phase 12d: {md_line}")
 
     # (c) NCCL, world size 1: the only NCCL one card can show. The driver
     # joins the group from the environment (--multihost); its data axis
@@ -1195,7 +1323,7 @@ def parallel_phase(counters: dict, card: str) -> dict:
                 "LOCAL_RANK": "0"}
     saved_env = {k: os.environ.get(k) for k in env_keys}
     os.environ.update(env_keys)
-    clock = {"ms": 0.0, "calls": 0}
+    clock = new_clock()
     with tempfile.TemporaryDirectory() as tmp:
         for fn in counters.values():
             fn.launches = 0
@@ -1227,7 +1355,8 @@ def parallel_phase(counters: dict, card: str) -> dict:
         raise AssertionError(f"phase 12c: {nccl}")
     emit({"phase": "parallel_seconds", "seconds": time.perf_counter() - t_phase})
     return {"sharded_launches": [o["bf16_launches"] for o in outs],
-            "dp_band_launches_per_rank": dp_line["band_launches_per_rank"], "nccl_launches": launches}
+            "dp_band_launches_per_rank": dp_line["band_launches_per_rank"], "nccl_launches": launches,
+            "sharded_train_launches": md_line["launches_per_rank"]}
 
 
 def frame_ms(fn, inputs, warmup: int = 3) -> list[float]:
@@ -1349,19 +1478,6 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
     return export_launches
 
 
-def calibrate_head(model, left, right) -> None:
-    """Scale the matching ``last_3`` kernel so the cost spans a few units.
-    Random weights give a cost of huge magnitude, where softmin degenerates
-    to a hard argmin and the soft-argmin is ill conditioned."""
-    cfg = model.config
-    with torch.no_grad():
-        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(cfg.dtype)
-        feats = model.feature(x)
-        pre = model.matching(feats[: left.shape[0]], feats[left.shape[0] :], cfg.maxdisp // 3)
-        std = model.matching.last_3(pre).float().std()
-        model.matching.last_3.conv.weight.mul_(3.0 / std)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -1381,8 +1497,7 @@ def main() -> int:
     from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
     dev = torch.device("cuda")
-    counters = {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
-                "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
+    counters = head_counters()
 
     def zero_counts() -> None:
         for fn in counters.values():
@@ -1411,37 +1526,17 @@ def main() -> int:
           "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions at the main path's shapes
-    b, c, d, h, w, maxdisp = 1, 32, 64, 128, 416, 192
+    # (utils/kernel_parity.py: each kernel against float64 on peaky, wide and
+    # diffuse inputs)
+    b, c, d, h, w, maxdisp = (kernel_parity.KITTI[k] for k in ("b", "c", "d", "h", "w", "maxdisp"))
     gen = torch.Generator(device=dev).manual_seed(0)
-    errs = {"fused_head_sm90": 0.0, "fused_head_sm90_f32": 0.0, "fused_head": 0.0}
-    band_err = 0.0
-    for kind in ("peaky", "wide", "diffuse"):
-        vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
-        for name, fn, dt in (("fused_head_sm90", conv_soft_argmin_sm90, torch.bfloat16),
-                             ("fused_head_sm90_f32", conv_soft_argmin_sm90_f32, torch.float32),
-                             ("fused_head", conv_soft_argmin_simt, torch.float32),
-                             ("fused_head", conv_soft_argmin_simt, torch.bfloat16)):
-            vol = vol32.to(dt)
-            got = fn(vol, kern, maxdisp)
-            ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
-            err = (got.double() - ref).abs().max().item()
-            emit({"phase": "kernel_check", "kernel": name, "input": kind, "dtype": str(dt),
-                  "shape": list(vol.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
-            if not err < TOL_KERNEL_PX:
-                raise AssertionError(f"{name} {kind} {dt}: {err} px")
-            errs[name] = max(errs[name], err)
-            del ref
-        if kind == "diffuse":
-            cost = torch.randn(b, d, h, w, generator=gen, device=dev)
-        else:
-            cost = peaky_cost(gen, b, d, h, w, dev) * (WIDE if kind == "wide" else 1.0)
-        got = soft_argmin_cuda(cost, maxdisp)
-        err = (got.double() - soft_argmin(cost.double(), maxdisp)).abs().max().item()
-        emit({"phase": "kernel_check", "kernel": "band_soft_argmin", "input": kind, "dtype": "torch.float32",
-              "shape": list(cost.shape), "max_abs_err_px": err, "tol_px": TOL_KERNEL_PX})
-        if not err < TOL_KERNEL_PX:
-            raise AssertionError(f"band kernel {kind}: {err} px")
-        band_err = max(band_err, err)
+    parity = (kernel_parity.head_checks(gen, b, c, d, h, w, maxdisp, dev)
+              + kernel_parity.band_checks(gen, b, d, h, w, maxdisp, dev))
+    for check in parity:
+        emit_check(check)
+    errs = {name: max(c["max_abs_err"] for c in parity if c["kernel"] == name)
+            for name in ("fused_head_sm90", "fused_head_sm90_f32", "fused_head")}
+    band_err = max(c["max_abs_err"] for c in parity if c["kernel"] == "band_soft_argmin")
 
     # A 300x cost (a span of thousands of units): the kernels and the fp32
     # plain versions, each against float64. Measured, not held to
@@ -1463,6 +1558,8 @@ def main() -> int:
     emit({"phase": "wide_span_300x", "max_abs_err_px": wide})
     del v300, c300, ref
 
+    vol32, kern = head_inputs(gen, "diffuse", b, c, d, h, w, dev)  # the timed inputs
+    cost = kernel_parity.band_cost(gen, "diffuse", b, d, h, w, dev)
     vol = vol32.to(torch.bfloat16)  # main path: bf16 volume
     kern16 = kern.to(torch.bfloat16)
     # Both fused heads and the unfused yardstick (cuDNN last_3 conv, then the
@@ -1563,6 +1660,10 @@ def main() -> int:
     right = torch.from_numpy(rng.randn(1, H, W, 3).astype(np.float32)).to(dev)
     model = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16"), seed=0)
     calibrate_head(model, left, right)
+    # The in-model fused path (utils/kernel_parity.py): the model's map
+    # against float64 on the volume and kernel it hands its head.
+    for check in kernel_parity.in_model_checks(model, left, right):
+        emit_check(check)
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
     zero_counts()
@@ -1784,10 +1885,12 @@ def main() -> int:
     # reference search through cli.search, decode, the decoded network
     search = search_phase(counters, card)
 
-    # ---- 12. parallel runs: the disparity-sharded KITTI frame and data-parallel
-    # steps on two gloo ranks of the card, cli.train over NCCL at world size 1
+    # ---- 12. parallel runs: the disparity-sharded KITTI frame, data-parallel
+    # steps and disparity-sharded train steps on two gloo ranks of the card,
+    # cli.train over NCCL at world size 1
     par = parallel_phase(counters, card)
     par_of = {k: {"parallel_sharded_frame_launches": [l[k] for l in par["sharded_launches"]],
+                  "parallel_sharded_train_launches": [l[k] for l in par["sharded_train_launches"]],
                   "parallel_nccl_launches": par["nccl_launches"][k]} for k in counters}
     par_of["band_soft_argmin"]["parallel_dp_launches_per_rank"] = par["dp_band_launches_per_rank"]
 
@@ -1810,6 +1913,8 @@ def main() -> int:
     # parallel_sharded_frame_launches: each rank's over the disparity-sharded
     # bf16 KITTI frames (phase 12a, 0: the sharded head is the plain one);
     # parallel_dp_launches_per_rank: over the 3 data-parallel steps (12b);
+    # parallel_sharded_train_launches: each rank's over the disparity-sharded
+    # Middlebury steps (12d: 3 fp32 and 8 bf16; 0, as in JAX under a pspec);
     # parallel_nccl_launches: over cli.train --multihost's 3 steps and val
     # frames (12c).
     # library_ms is null for the heads: no one PyTorch call computes them;

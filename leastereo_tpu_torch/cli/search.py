@@ -15,9 +15,11 @@ betas, which ``cli.decode`` reads.
 
 ``--mesh_data N`` runs the weight and arch steps data-parallel over N ranks
 (``search/bilevel.py`` with the mesh; ranks as in ``cli/train.py``); rank 0
-runs the val frames and writes the checkpoints and logs. ``--mesh_disp > 1``
-raises: the JAX driver only replicates work on that axis
-(``leastereo_tpu/cli/search.py:62-66``).
+runs the val frames and writes the checkpoints and logs. ``--mesh_disp M``
+replicates the work over M ranks, as the JAX driver does on that axis
+(``leastereo_tpu/cli/search.py:62-66``): the supernet's volume is not
+sharded, the disp ranks of a data row load the same rows and take the same
+steps, and the steps reduce over the data group only.
 """
 
 from __future__ import annotations
@@ -67,11 +69,6 @@ def build_supernet(args) -> AutoStereoSupernet:
 
 def main(argv=None) -> int:
     args = search_parser().parse_args(argv)
-    if args.mesh_disp > 1:
-        raise NotImplementedError(
-            "search --mesh_disp > 1: the supernet's volume is not sharded; the JAX driver only "
-            "replicates work on that axis (leastereo_tpu/cli/search.py:62-66). Use --mesh_data"
-        )
     return run_on_mesh("leastereo_tpu_torch.cli.search", argv, args, lambda mesh: search(args, mesh))
 
 

@@ -15,11 +15,14 @@ is the fused head. Checkpoints are torch files
 ``--mesh_data N`` trains data-parallel over N ranks (``cli/common.py``
 ``run_on_mesh``: spawned locally, or from torchrun's environment): each rank
 loads its rows of every global ``--batch_size`` batch and takes the step of
-``train/step.py`` with the mesh. Validation follows the JAX driver
-(``leastereo_tpu/cli/train.py:171-180``): it is not split over ranks; rank
-0 runs it and sends its averages to every rank, which stop early alike.
-Only rank 0 writes checkpoints and logs. ``--mesh_disp > 1`` (disparity-
-sharded training) raises: it is not ported yet (``ROADMAP.md`` A9).
+``train/step.py`` with the mesh. ``--mesh_disp M`` also shards the cost
+volume's disparity axis over M ranks (``cost_volume_pspec``, as the JAX
+driver): the M ranks of a data row load the same rows and take the
+disparity-sharded step together. Validation follows the JAX driver
+(``leastereo_tpu/cli/train.py:171-180``): it is not split over data rows;
+the disp ranks of data row 0 run it together (the sharded forward's
+collectives span them), rank 0 sends its averages to every rank, which
+stop early alike. Only rank 0 writes checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -73,12 +76,12 @@ def freeze_params(model: LEAStereo, freeze_feature: bool, freeze_matching: int) 
     return names
 
 
-def make_val_other(args, model: LEAStereo):
+def make_val_other(args, model: LEAStereo, echo: bool = True):
     """Extra fixed-list validation sweeps with a per-sweep z_shift
     (reference train.py:243-307 ``val_other``/``val_for``), one per
     ``--val_other name:dataset:list_file:data_root[:z_shift]``, through the
     predict driver's ``run_frame``. Returns ``run() -> [(name, metrics)]``
-    or None."""
+    or None. ``echo=False`` prints nothing (a validating rank other than 0)."""
     specs = args.val_other or []
     if not specs:
         return None
@@ -113,7 +116,8 @@ def make_val_other(args, model: LEAStereo):
                 ow = (target.shape[1] - tw) // 2 if target.shape[1] > tw else 0
                 frames.append(frame_metrics(disp, target[oh : oh + th, ow : ow + tw], args.maxdisp, ()))
             avg = {k: float(np.mean([f[k] for f in frames])) for k in ("epe", "err3")}
-            print(f"===> val_other {name}: epe={avg['epe']:.4f} err3={avg['err3']:.4f}", flush=True)
+            if echo:
+                print(f"===> val_other {name}: epe={avg['epe']:.4f} err3={avg['err3']:.4f}", flush=True)
             out.append((name, avg))
         return out
 
@@ -122,22 +126,17 @@ def make_val_other(args, model: LEAStereo):
 
 def main(argv=None) -> int:
     args = train_parser().parse_args(argv)
-    if args.mesh_disp > 1:
-        raise NotImplementedError(
-            "train --mesh_disp > 1: disparity-sharded training needs the halo exchange's adjoint and BN "
-            "statistics of the planes each rank owns, which are not ported yet (ROADMAP.md A9); "
-            "use --mesh_data, or --mesh_disp with predict and evaluate"
-        )
     return run_on_mesh("leastereo_tpu_torch.cli.train", argv, args, lambda mesh: train(args, mesh))
 
 
 def train(args, mesh: Mesh) -> int:
     """The training run of ``args`` as this process's rank of ``mesh``."""
     # First, so that --device cuda without a card raises before a file is written.
-    model = build_model(args, seed=args.seed)
+    model = build_model(args, seed=args.seed, mesh=mesh)
     device = next(model.parameters()).device
     broadcast_module(model, mesh)
     lead = mesh.rank == 0
+    validates = mesh.data_index == 0  # the disp ranks of data row 0
 
     saver = None
     if lead:
@@ -201,7 +200,7 @@ def train(args, mesh: Mesh) -> int:
 
         early.save_fn = gated_save
 
-    val_other = make_val_other(args, model) if lead else None
+    val_other = make_val_other(args, model, echo=lead) if validates else None
 
     step = 0
     for epoch in range(args.epochs):
@@ -213,7 +212,7 @@ def train(args, mesh: Mesh) -> int:
             if args.max_steps_per_epoch and epoch_step + 1 >= args.max_steps_per_epoch:
                 break
         avg = None
-        if lead:
+        if validates:
             vals = [eval_step(model, batch, args.maxdisp)[1] for batch in val_loader(0)]
             if val_other is not None:
                 for name, m in val_other():

@@ -30,9 +30,12 @@ fp32, or ``(disp, entropy)`` with ``return_entropy``.
 With ``cost_volume_pspec`` naming the ``disp`` axis, the matching net runs
 on this rank's slab of the volume's D planes over the ``disp`` group of
 ``self.mesh`` (``parallel/mesh.py``; ``None`` is a 1x1 mesh), and the head
-is the plain distributed soft-argmin (``soft_argmin_sharded``): neither CUDA
-head runs there, as the JAX package gates its kernels off under a pspec
-(``leastereo_tpu/models/leastereo.py:126,171``). Eval only.
+is the plain distributed soft-argmin (``soft_argmin_sharded``, or
+``soft_argmin_fast_sharded`` with ``fast_head``): neither CUDA head runs
+there, as the JAX package gates its kernels off under a pspec
+(``leastereo_tpu/models/leastereo.py:126,171``). In eval and in training:
+every piece of the sharded path has its backward, and ``train/step.py``
+sets the BatchNorm groups and sums the gradients over the mesh.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ from ..ops.softargmin import (
     disparity_entropy_sharded,
     soft_argmin,
     soft_argmin_fast,
+    soft_argmin_fast_sharded,
     soft_argmin_sharded,
 )
 from ..parallel.halo import DispPartition
@@ -140,11 +144,6 @@ class LEAStereo(nn.Module):
             # The stride-3 stem would round up and return a larger map; sizes
             # that divide by 3 but not by the deeper levels fail in the nets.
             raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
-        if cfg.cost_volume_pspec is not None and self.training:
-            raise NotImplementedError(
-                "training with cost_volume_pspec: the halo exchange has no adjoint and BN would need "
-                "statistics of the planes each rank owns (ROADMAP.md A9, disparity-sharded training)"
-            )
         # Shared weights across views (reference retrain/LEAStereo.py:31-32).
         if self.training:
             # One call per view, as the reference and the JAX model
@@ -186,19 +185,18 @@ class LEAStereo(nn.Module):
         there is no mesh)."""
         pspec, mesh = self.config.cost_volume_pspec, self.mesh
         depth = self.config.maxdisp // 3
-        if mesh is None or len(pspec) < 2 or pspec[1] != DISP_AXIS or mesh.disp == 1:
+        if mesh is None or pspec is None or len(pspec) < 2 or pspec[1] != DISP_AXIS or mesh.disp == 1:
             return DispPartition(depth)
         return DispPartition(depth, mesh.disp, mesh.disp_index, mesh.disp_group)
 
     def _sharded_head(self, f_left: torch.Tensor, f_right: torch.Tensor):
         """The matching net on this rank's slab and the plain distributed head."""
         cfg = self.config
-        if cfg.fast_head:
-            raise NotImplementedError("fast_head with cost_volume_pspec: the sharded heads are the exact ones")
         part = self.disp_partition()
         vol = self.matching(f_left, f_right, part.depth, fused_stem=cfg.fused_stem, part=part)
         cost = self.matching.last_3(vol, part)[:, 0]
-        disp = soft_argmin_sharded(cost, part, cfg.maxdisp)
+        head = soft_argmin_fast_sharded if cfg.fast_head else soft_argmin_sharded
+        disp = head(cost, part, cfg.maxdisp)
         if cfg.return_entropy:
             return disp, disparity_entropy_sharded(cost, part, cfg.maxdisp)
         return disp

@@ -14,7 +14,7 @@ volume's D planes, ``forward`` computes one rank's slab of every volume
 (the CP analog of the JAX package's ``volume_pspec``): the stem builds its
 planes from the features, each level takes its own partition of that
 level's depth, and the 3x3x3 convolutions and resizes exchange the planes
-they need (``parallel/halo.py``). Eval only.
+they need (``parallel/halo.py``), in eval and in training.
 """
 
 from __future__ import annotations
@@ -43,7 +43,13 @@ class FusedStem0(ConvBR):
     the volume is never built (``ops/fused_stem.py``): the BN scale folds into
     the kernel and bias + ReLU ride the assembly's epilogue. Otherwise, and in
     training, the explicit volume goes through the ConvBR. Same ``conv``/``bn``
-    parameters either way."""
+    parameters either way.
+
+    Given a partition, the stem computes rank ``part.rank``'s planes: fused,
+    through the fused stem's plane range; explicit, from the volume's planes
+    ``[lo - 1, hi + 1)``, which the rank builds from the features it holds
+    (zeros outside ``[0, num_disp)``), convolved with no depth padding. No
+    exchange: both views' features are on every rank."""
 
     def __init__(self, feature_channels: int, out_channels: int, generator: torch.Generator | None = None):
         super().__init__(2 * feature_channels, out_channels, 3, 1, 1, ndim=3, generator=generator)
@@ -56,14 +62,14 @@ class FusedStem0(ConvBR):
         fused: bool = True,
         part: DispPartition | None = None,
     ):
-        """``part``: compute only rank ``part.rank``'s planes (fused, eval)."""
-        if part is not None and (not fused or self.training):
-            raise NotImplementedError("the disparity-sharded stem is the fused eval stem only")
-        if not fused or self.training:
+        """``part``: compute only rank ``part.rank``'s planes."""
+        if fused and not self.training:
+            weight, bias = self.folded()
+            planes = None if part is None else (part.lo, part.hi)
+            return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True, planes=planes)
+        if part is None:
             return super().forward(build_cost_volume(left, right, num_disp))
-        weight, bias = self.folded()
-        planes = None if part is None else (part.lo, part.hi)
-        return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True, planes=planes)
+        return self.haloed(build_cost_volume(left, right, num_disp, planes=(part.lo - 1, part.hi + 1)))
 
 
 class MatchingNet(nn.Module):

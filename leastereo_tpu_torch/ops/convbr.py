@@ -17,7 +17,9 @@ normalises with the statistics of the global batch over that group
 :class:`~leastereo_tpu_torch.parallel.DispPartition`, a depth-3 convolution
 takes its neighbours' ±1 planes (``parallel/halo.py``) and convolves with
 no depth padding, so a rank's slab of a disparity-sharded volume comes out
-as the same planes of the unsharded convolution.
+as the same planes of the unsharded convolution, in eval and in training
+(the exchange has its adjoint); a train-mode BN over such slabs takes its
+statistics over the ``disp`` ranks too, through ``bn_group``.
 """
 
 from __future__ import annotations
@@ -69,20 +71,13 @@ class ConvBR(nn.Module):
         self.bn_group = None  # process group of the train-mode BN statistics
 
     def conv_fn(
-        self,
-        x: torch.Tensor,
-        weight: torch.Tensor,
-        bias: torch.Tensor | None,
-        part: DispPartition | None = None,
+        self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, depth_pad: bool = True
     ) -> torch.Tensor:
-        """The convolution; with ``part``, of rank ``part.rank``'s slab of a
-        volume sharded along depth (its halo fetched, no depth padding)."""
+        """The convolution; without ``depth_pad``, of a slab that already
+        carries its depth halo (no padding along depth)."""
         if self.conv.weight.ndim == 4:
             return F.conv2d(x, weight, bias, self.conv.stride, self.conv.padding)
-        padding = self.conv.padding
-        if part is not None and self.conv.kernel_size[0] > 1:
-            x = halo(x, part, self.conv.kernel_size[0] // 2)
-            padding = (0, *padding[1:])
+        padding = self.conv.padding if depth_pad else (0, *self.conv.padding[1:])
         return F.conv3d(x, weight, bias, self.conv.stride, padding)
 
     def folded(self) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -133,13 +128,22 @@ class ConvBR(nn.Module):
 
     def forward(self, x: torch.Tensor, part: DispPartition | None = None) -> torch.Tensor:
         """``part``: the depth partition of ``x`` when it is one rank's slab of
-        a disparity-sharded volume (eval only: the exchange has no adjoint)."""
+        a disparity-sharded volume (its halo is fetched, then :meth:`haloed`)."""
+        if part is not None and self.conv.weight.ndim == 5 and self.conv.kernel_size[0] > 1:
+            return self.haloed(halo(x, part, self.conv.kernel_size[0] // 2))
+        return self._conv_bn(x, True)
+
+    def haloed(self, x: torch.Tensor) -> torch.Tensor:
+        """The ConvBR of a slab that already carries its depth halo: the
+        convolution with no depth padding, then BN (training) or the folded
+        affine (eval), then the ReLU."""
+        return self._conv_bn(x, False)
+
+    def _conv_bn(self, x: torch.Tensor, depth_pad: bool) -> torch.Tensor:
         if self.training:
-            if part is not None:
-                raise NotImplementedError("disparity-sharded training: the halo exchange has no backward yet")
-            return self.post(self.conv_fn(x, self.conv.weight.to(x.dtype), None))
+            return self.post(self.conv_fn(x, self.conv.weight.to(x.dtype), None, depth_pad))
         weight, bias = self.folded()
-        x = self.conv_fn(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), part)
+        x = self.conv_fn(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), depth_pad)
         return torch.relu(x) if self.relu else x
 
 

@@ -13,14 +13,19 @@ import torch
 __all__ = ["build_cost_volume"]
 
 
-def build_cost_volume(left: torch.Tensor, right: torch.Tensor, num_disp: int) -> torch.Tensor:
+def build_cost_volume(
+    left: torch.Tensor, right: torch.Tensor, num_disp: int, planes: tuple[int, int] | None = None
+) -> torch.Tensor:
     """``left``, ``right``: NCHW ``(B, C, H, W)`` features. Returns the NCDHW
     volume ``(B, 2C, num_disp, H, W)`` with ``vol[:, :C, d, :, w] = left[..., w]``
     and ``vol[:, C:, d, :, w] = right[..., w - d]`` for ``w >= d``, zero
-    elsewhere."""
+    elsewhere. ``planes=(lo, hi)``: only planes ``lo <= d < hi`` of it, those
+    outside ``[0, num_disp)`` zero (a rank's slab of a disparity-sharded
+    volume with its halo planes)."""
     b, c, h, w = left.shape
-    vol = left.new_zeros((b, 2 * c, num_disp, h, w))
-    for d in range(min(num_disp, w)):
-        vol[:, :c, d, :, d:] = left[..., d:]
-        vol[:, c:, d, :, d:] = right[..., : w - d]
+    lo, hi = (0, num_disp) if planes is None else planes
+    vol = left.new_zeros((b, 2 * c, hi - lo, h, w))
+    for d in range(max(lo, 0), min(hi, num_disp, w)):
+        vol[:, :c, d - lo, :, d:] = left[..., d:]
+        vol[:, c:, d - lo, :, d:] = right[..., : w - d]
     return vol

@@ -57,12 +57,14 @@ def resize3d(
     n_in, n_out = part.depth, out_dhw[0]
     out_part = part.of_depth(n_out)
     # PyTorch's trilinear arithmetic (upsample_trilinear3d, align_corners):
-    # a float32 scale, the source coordinate scale * p, its integer part and
-    # float32 weights; each source plane resized bilinearly in (H, W), then
+    # a scale in the op's math type (float32; float64 for float64 input),
+    # the source coordinate scale * p, its integer part and weights in that
+    # type; each source plane resized bilinearly in (H, W), then
     # the two planes blended as lambda0 * a + lambda1 * b in one fused
     # multiply-add (addcmul). On the card this reproduces F.interpolate's
     # result bit for bit, so a sharded volume's planes are the unsharded ones.
-    scale = torch.tensor(float(n_in - 1) if n_out > 1 else 0.0, dtype=torch.float32) / max(n_out - 1, 1)
+    opmath = torch.float64 if x.dtype == torch.float64 else torch.float32
+    scale = torch.tensor(float(n_in - 1) if n_out > 1 else 0.0, dtype=opmath) / max(n_out - 1, 1)
 
     def first(p: int) -> int:  # the lower source plane of output plane p
         return min(int(scale * p), n_in - 1)
@@ -76,9 +78,9 @@ def resize3d(
         src = F.interpolate(src.transpose(1, 2).reshape(bsz * n, c, h, w), size=tuple(out_dhw[1:]),
                             mode="bilinear", align_corners=True)
         src = src.view(bsz, n, c, *out_dhw[1:]).transpose(1, 2)
-    pos = scale * torch.arange(out_part.lo, out_part.hi, dtype=torch.float32)
+    pos = scale * torch.arange(out_part.lo, out_part.hi, dtype=opmath)
     i0 = pos.long()
-    lam1 = pos - i0.float()
+    lam1 = pos - i0.to(opmath)
     i1 = (i0 + 1).clamp(max=n_in - 1)
     base = lo[part.rank]
     a = src.index_select(2, (i0 - base).to(x.device))

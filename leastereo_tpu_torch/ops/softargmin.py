@@ -9,13 +9,15 @@ softmin'd over the ``3D`` disparity planes and reduced to ``sum_d d * p(d)``.
 The cost tensors here are ``(B, D, h, w)``: the JAX functions take the same
 data as ``(B, D, h, w, 1)``.
 
-``soft_argmin_sharded`` and ``disparity_entropy_sharded`` are the plain
-distributed heads of a disparity-sharded cost (``parallel/halo.py``): each
-rank holds a slab of the D planes, takes its neighbours' ±1 low-res planes
-for the 3x D upsample (edges clamped at the global ends only), and the
-reductions over D are all_reduces, so every rank ends with the whole
-``(B, 3h, 3w)`` map. The JAX package runs its plain heads there too
-(``leastereo_tpu/models/leastereo.py:126,171``).
+``soft_argmin_sharded``, ``soft_argmin_fast_sharded`` and
+``disparity_entropy_sharded`` are the plain distributed heads of a
+disparity-sharded cost (``parallel/halo.py``): each rank holds a slab of the
+D planes, takes its neighbours' ±1 low-res planes for the 3x D upsample
+(edges clamped at the global ends only), and the reductions over D are
+all_reduces, so every rank ends with the whole ``(B, 3h, 3w)`` map. The JAX
+package runs its plain heads there too
+(``leastereo_tpu/models/leastereo.py:126,171``). The two soft-argmins are
+differentiable (the train step's heads); the entropy is eval-only.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ __all__ = [
     "soft_argmin_fast",
     "disparity_entropy",
     "soft_argmin_sharded",
+    "soft_argmin_fast_sharded",
     "disparity_entropy_sharded",
 ]
 
@@ -101,22 +104,67 @@ def _clamped_halo(cost: torch.Tensor, part: DispPartition) -> torch.Tensor:
     return x
 
 
+class _SumOverRanks(torch.autograd.Function):
+    """The sum of ``x`` over ``group`` on every rank. Its adjoint passes
+    each rank its own gradient of the sum (the identity): every rank of a
+    sharded head holds the same map and computes the same loss from it, so
+    that gradient is already the gradient of the loss, counted once. (An
+    all_reduce of the gradients, as ``torch.distributed.nn`` does, would
+    count it once per rank.)"""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _sum_over_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else _SumOverRanks.apply(x, group)
+
+
 def soft_argmin_sharded(cost: torch.Tensor, part: DispPartition, maxdisp: int) -> torch.Tensor:
     """:func:`soft_argmin` of a cost sharded along D: ``cost`` is rank
     ``part.rank``'s ``(B, n, h, w)`` slab of the ``part.depth`` planes. The
     same fp32 formula; the minimum is an all_reduce MIN and the two sums an
     all_reduce SUM over ``part.group``. Returns the whole ``(B, 3h, 3w)`` map
-    on every rank."""
+    on every rank.
+
+    Differentiable: the minimum only stabilises the softmin, which does not
+    change when the cost shifts, so it is detached; the sums' adjoint is
+    the identity (:class:`_SumOverRanks`), so the gradient a rank's slab
+    receives is its share of the gradient of a loss every rank computes
+    alike, not ``part.world`` times it."""
     if maxdisp != 3 * part.depth:
         raise ValueError(f"maxdisp {maxdisp} != 3 * D ({part.depth})")
     x = _clamped_halo(cost, part)
     x = upsample3x_axis(x, 2)
     x = upsample3x_axis(x, 3)  # (B, n + 2, 3h, 3w)
     a = _phases(x[:, :-2], x[:, 1:-1], x[:, 2:])
-    m = all_reduce(_phase_min(a), part.group, dist.ReduceOp.MIN)
+    with torch.no_grad():
+        m = all_reduce(_phase_min(a), part.group, dist.ReduceOp.MIN)
     num, den = _expectation(a, m, part.lo)
-    num, den = all_reduce(torch.stack([num, den]), part.group)
+    num, den = _sum_over_ranks(torch.stack([num, den]), part.group)
     return num / den
+
+
+def soft_argmin_fast_sharded(cost: torch.Tensor, part: DispPartition, maxdisp: int) -> torch.Tensor:
+    """:func:`soft_argmin_fast` of a cost sharded along D (``cost`` as in
+    :func:`soft_argmin_sharded`): the softmax over the D planes takes its
+    maximum (all_reduce MAX, detached) and its two sums (all_reduce SUM,
+    identity adjoint) from every rank. The whole ``(B, 3h, 3w)`` map on
+    every rank."""
+    _, n, h, w = cost.shape
+    x = -_math_dtype(cost)
+    with torch.no_grad():
+        m = all_reduce(x.amax(dim=1, keepdim=True), part.group, dist.ReduceOp.MAX)
+    e = torch.exp(x - m)
+    disp = torch.arange(part.lo, part.hi, dtype=x.dtype, device=x.device).view(1, n, 1, 1)
+    num, den = _sum_over_ranks(torch.stack([(e * disp).sum(dim=1), e.sum(dim=1)]), part.group)
+    low = num / den * (maxdisp / part.depth) + 1.0  # (B, h, w)
+    return resize2d(low[:, None], (3 * h, 3 * w), align_corners=False)[:, 0]
 
 
 def soft_argmin_fast(cost: torch.Tensor, maxdisp: int) -> torch.Tensor:

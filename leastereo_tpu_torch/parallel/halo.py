@@ -19,8 +19,15 @@ another, each written by its owner and zero elsewhere, so the sum is exact
 in any dtype. ``all_reduce`` is the one collective that both NCCL and gloo
 carry for CUDA tensors (gloo has no CUDA point-to-point); on gloo it stages
 through the host. Every rank passes every rank's range: the buffer's layout
-is computed on each rank and must agree. Forward only: the exchange has no
-adjoint yet, so the sharded path is eval-only (``ROADMAP.md`` A9).
+is computed on each rank and must agree.
+
+The exchange is differentiable. Its adjoint is the transpose of the copy:
+each rank packs the gradient of every plane it received into the same
+segment buffer, one ``all_reduce`` carries it to the owners, and each owner
+adds the segments it sent, and the gradient of the planes it copied
+locally, into the gradient of its slab. So ``halo``, the sharded resize and
+the sharded heads built on it have their backward, and every rank runs it
+with the ranges of its forward.
 """
 
 from __future__ import annotations
@@ -77,6 +84,75 @@ class DispPartition:
         return dataclasses.replace(self, depth=depth)
 
 
+def _segments(part: DispPartition, lo: Sequence[int], hi: Sequence[int]) -> list[tuple[int, int, int, int]]:
+    """Every ``(destination, source, start, end)`` overlap of a rank's
+    request with another rank's planes, in one order every rank computes
+    alike: the layout of the exchange's buffer."""
+    segments = []
+    for dst in range(part.world):
+        for src, (a, b) in enumerate(part.bounds):
+            s, e = max(lo[dst], a), min(hi[dst], b)
+            if src != dst and s < e:
+                segments.append((dst, src, s, e))
+    return segments
+
+
+def _exchange(
+    x: torch.Tensor, part: DispPartition, lo: Sequence[int], hi: Sequence[int], dim: int, adjoint: bool
+) -> torch.Tensor:
+    """The copy of :func:`fetch_planes` (``adjoint=False``: ``x`` is the
+    slab, the result the planes ``[lo[me], hi[me])``) or its transpose
+    (``adjoint=True``: ``x`` is the gradient of those planes, the result the
+    gradient of the slab)."""
+    me = part.rank
+    own_lo, own_hi = part.bounds[me]
+    segments = _segments(part, lo, hi)
+    shape = list(x.shape)
+    shape[dim] = own_hi - own_lo if adjoint else hi[me] - lo[me]
+    out = x.new_zeros(shape)
+    # Offsets of a global plane in the requested range and in the slab.
+    req, slab = (lambda p: p - lo[me]), (lambda p: p - own_lo)
+    get, put = (req, slab) if adjoint else (slab, req)
+
+    def copy(dst_t, at, src_t, start, n, add=False):
+        d = dst_t.narrow(dim, at, n)
+        s = src_t.narrow(dim, start, n)
+        d.add_(s) if add else d.copy_(s)
+
+    s, e = max(lo[me], own_lo), min(hi[me], own_hi)
+    if s < e:
+        copy(out, put(s), x, get(s), e - s)
+    if not segments:
+        return out
+    shape[dim] = sum(e - s for _, _, s, e in segments)
+    buf = x.new_zeros(shape)
+    # Forward: owners write, requesters read. Adjoint: requesters write the
+    # gradient of what they read, owners add it to their planes.
+    at = 0
+    for dst, src, s, e in segments:
+        if (dst if adjoint else src) == me:
+            copy(buf, at, x, get(s), e - s)
+        at += e - s
+    all_reduce(buf, part.group)
+    at = 0
+    for dst, src, s, e in segments:
+        if (src if adjoint else dst) == me:
+            copy(out, put(s), buf, at, e - s, add=adjoint)
+        at += e - s
+    return out
+
+
+class _FetchPlanes(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, part, lo, hi, dim):
+        ctx.args = (part, lo, hi, dim)
+        return _exchange(x, part, lo, hi, dim, adjoint=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad.contiguous(), *ctx.args, adjoint=True), None, None, None, None
+
+
 def fetch_planes(
     x: torch.Tensor, part: DispPartition, lo: Sequence[int], hi: Sequence[int], dim: int = 2
 ) -> torch.Tensor:
@@ -85,48 +161,13 @@ def fetch_planes(
 
     ``lo`` and ``hi`` hold every rank's range, one entry per rank; planes
     outside ``[0, depth)`` are zeros. Every rank of ``part.group`` must call
-    this with the same ``lo``, ``hi``. Planes another rank owns arrive
-    through one ``all_reduce``; none runs when no rank needs another's."""
+    this with the same ``lo``, ``hi``, and so must its backward. Planes
+    another rank owns arrive through one ``all_reduce``; none runs when no
+    rank needs another's."""
     dim = dim % x.ndim
     if x.shape[dim] != part.count:
         raise ValueError(f"slab of {x.shape[dim]} planes along dim {dim}; rank {part.rank} owns {part.count}")
-    bounds = part.bounds
-    me = part.rank
-    # Every (destination, source) overlap of a request with another rank's
-    # planes, in one order every rank computes alike.
-    segments = []
-    for dst in range(part.world):
-        for src, (a, b) in enumerate(bounds):
-            s, e = max(lo[dst], a), min(hi[dst], b)
-            if src != dst and s < e:
-                segments.append((dst, src, s, e))
-    own_lo, own_hi = bounds[me]
-    shape = list(x.shape)
-    shape[dim] = hi[me] - lo[me]
-    out = x.new_zeros(shape)
-
-    def put(dst_t, at, src_t, start, n):
-        dst_t.narrow(dim, at, n).copy_(src_t.narrow(dim, start, n))
-
-    s, e = max(lo[me], own_lo), min(hi[me], own_hi)
-    if s < e:
-        put(out, s - lo[me], x, s - own_lo, e - s)
-    if not segments:
-        return out
-    shape[dim] = sum(e - s for _, _, s, e in segments)
-    buf = x.new_zeros(shape)
-    at = 0
-    for dst, src, s, e in segments:
-        if src == me:
-            put(buf, at, x, s - own_lo, e - s)
-        at += e - s
-    all_reduce(buf, part.group)
-    at = 0
-    for dst, src, s, e in segments:
-        if dst == me:
-            put(out, s - lo[me], buf, at, e - s)
-        at += e - s
-    return out
+    return _FetchPlanes.apply(x, part, tuple(lo), tuple(hi), dim)
 
 
 def halo(x: torch.Tensor, part: DispPartition, width: int = 1, dim: int = 2) -> torch.Tensor:

@@ -11,7 +11,9 @@ insert the collectives; here each mesh position is one process of a
 * ``disp``: the disparity axis of the 5-D cost volume, the context-parallel
   analog for maxdisp-408 Middlebury frames. Each rank holds a slab of planes
   and the ±1-plane halos of the 3x3x3 convolutions go through
-  ``parallel/halo.py``.
+  ``parallel/halo.py``. In a disparity-sharded train step the matching
+  net's BatchNorm statistics and the gradients are all-reduced over
+  ``group``, which holds the ranks of both axes.
 
 Ranks are laid out as JAX lays out devices,
 ``devices[:data * disp].reshape(data, disp)``: rank ``i_data * disp + i_disp``.
@@ -43,17 +45,19 @@ DISP_AXIS = "disp"
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place in a ``(data, disp)`` mesh and its two groups:
+    """This rank's place in a ``(data, disp)`` mesh and its groups:
     ``data_group`` holds the ranks of this rank's disp coordinate (one per
-    data index), ``disp_group`` those of its data coordinate. A group is
-    ``None`` where its axis has size 1, so no collective runs over it, except
-    in a launched world of one (:func:`make_mesh`)."""
+    data index), ``disp_group`` those of its data coordinate, and ``group``
+    every rank of the mesh. A group is ``None`` where it holds one rank, so
+    no collective runs over it, except in a launched world of one
+    (:func:`make_mesh`)."""
 
     data: int
     disp: int
     rank: int = 0
     data_group: object | None = None
     disp_group: object | None = None
+    group: object | None = None
 
     @property
     def data_index(self) -> int:
@@ -104,7 +108,7 @@ def make_mesh(data: int | None = None, disp: int = 1) -> Mesh:
 
     data_rows = [[i * disp + j for i in range(data)] for j in range(disp)]
     disp_rows = [[i * disp + j for j in range(disp)] for i in range(data)]
-    return Mesh(data, disp, rank, groups(data_rows), groups(disp_rows))
+    return Mesh(data, disp, rank, groups(data_rows), groups(disp_rows), groups([list(range(data * disp))]))
 
 
 def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -19,6 +19,8 @@ Data-parallel (``mesh``): the reductions of ``train/step.py``. The batch is
 this rank's rows; the supernet's BN syncs over the data group, the loss is
 this rank's sum over the global count of ``target < maxdisp``, the stepped
 side's gradients are summed over the group, and the metrics are global.
+The ranks of the mesh's ``disp`` axis replicate the step: the supernet's
+volume is not sharded, as in the JAX search over such a mesh.
 """
 
 from __future__ import annotations

@@ -14,6 +14,21 @@ so ranks with different numbers of valid pixels weigh as in one batch), the
 gradients are summed over the data group in one all_reduce, and the metrics
 are global. The replicas start equal (``parallel.broadcast_module``) and
 stay so: every rank applies the same summed gradient.
+
+Disparity-sharded (a mesh with ``disp > 1``, as the JAX step under
+``cost_volume_pspec=("data", "disp")``): the model's cost volume is sharded
+over the mesh's disp ranks (``model.mesh``), and every disp rank of a data
+row holds that row's batch and, after the sharded head, the same whole map.
+So the valid-pixel count and the metrics reduce over the data group only,
+and the loss is counted once (the head's sums pass each rank its own
+gradient, ``ops/softargmin.py``). The matching net's BatchNorm takes its
+statistics over both axes (each rank holds only its planes); the feature
+net, replicated over disp, keeps the data group, whose ranks hold distinct
+rows. (Over both axes each row would count ``disp`` times, in the sums and
+in the count alike, so its statistics and the summed gradients would come
+out the same, at ``disp`` times the traffic.) Each rank's gradients are its
+partial sums (its rows, its planes), summed over both axes in one
+all_reduce.
 """
 
 from __future__ import annotations
@@ -112,6 +127,23 @@ def _data_group(mesh: Mesh | None):
     return None if mesh is None else mesh.data_group
 
 
+def _step_groups(model: torch.nn.Module, mesh: Mesh | None):
+    """Set the BatchNorm groups of a train step of ``model`` over ``mesh``
+    (module docstring) and return the group its gradients sum over."""
+    if mesh is None or mesh.disp == 1:
+        set_bn_group(model, _data_group(mesh))
+        return _data_group(mesh)
+    part = model.disp_partition()
+    if (part.world, part.group) != (mesh.disp, mesh.disp_group):
+        raise ValueError(
+            f"a train step over a mesh with disp={mesh.disp} needs a model whose cost volume is sharded over "
+            "its disp ranks: cost_volume_pspec=('data', 'disp') and model.mesh = mesh"
+        )
+    set_bn_group(model.feature, mesh.data_group)
+    set_bn_group(model.matching, mesh.group)
+    return mesh.group
+
+
 def global_count(mask: torch.Tensor, group) -> torch.Tensor:
     """The number of ``True`` in ``mask`` summed over ``group`` (float)."""
     return all_reduce(mask.sum().float(), group)
@@ -151,11 +183,11 @@ def train_step(
     3-px error of the train-mode disparity, as floats.
 
     With ``mesh``, ``batch`` is this rank's rows and the step is the data-
-    parallel step over ``mesh.data_group`` (module docstring): the returned
-    numbers are those of the global batch."""
+    parallel, and with ``mesh.disp > 1`` the disparity-sharded, step
+    (module docstring): the returned numbers are those of the global batch."""
     model.train()
+    grad_group = _step_groups(model, mesh)
     group = _data_group(mesh)
-    set_bn_group(model, group)
     left, right, target = _to_model(batch, model)
     for g in optimizer.param_groups:
         g["lr"] = lr
@@ -166,7 +198,7 @@ def train_step(
         loss = loss + edge_loss_w * edge_aware_smoothness_loss(disp, target, maxdisp, count)
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
-    all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], group)
+    all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], grad_group)
     optimizer.step()
     return global_metrics(disp.detach(), target, maxdisp, group, loss)
 
@@ -175,7 +207,9 @@ def eval_step(
     model: torch.nn.Module, batch: dict, maxdisp: int, mesh: Mesh | None = None
 ) -> tuple[torch.Tensor, dict[str, float]]:
     """Eval-mode disparity of a batch and its EPE and 3-px error; with
-    ``mesh``, of this rank's rows, and the metrics of the global batch."""
+    ``mesh``, of this rank's rows, and the metrics of the global batch. A
+    disparity-sharded model (``mesh.disp > 1``) runs its sharded forward on
+    every disp rank, each of which returns the whole map."""
     model.eval()
     left, right, target = _to_model(batch, model)
     with torch.inference_mode():

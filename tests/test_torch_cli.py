@@ -183,7 +183,8 @@ def test_drivers_import_no_jax():
         " leastereo_tpu_torch.cli.export, leastereo_tpu_torch.utils, leastereo_tpu_torch.utils.tracing,"
         " leastereo_tpu_torch.data.native, leastereo_tpu_torch.data.augment, leastereo_tpu_torch.data.demo,"
         " leastereo_tpu_torch.data.lists, leastereo_tpu_torch.data.tools,"
-        " leastereo_tpu_torch.cli.search, leastereo_tpu_torch.cli.decode, leastereo_tpu_torch.search;"
+        " leastereo_tpu_torch.cli.search, leastereo_tpu_torch.cli.decode, leastereo_tpu_torch.search,"
+        " leastereo_tpu_torch.utils.kernel_parity;"
         "bad = [m for m in sys.modules if m.split('.')[0].startswith(('jax', 'flax', 'orbax', 'optax'))"
         " or m.split('.')[0] == 'leastereo_tpu'];"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -9,8 +9,10 @@ On the synthetic SceneFlow tree and tiny architecture of
 * ``cli.train --mesh_data 2`` spawns its ranks, takes 2 steps and only rank
   0 writes checkpoints and logs; ``--multihost`` under torchrun's variables
   for a world of one joins and leaves a gloo group;
-* what the drivers refuse: ``--mesh_disp > 1`` in train and search, and on
-  ``cuda`` a mesh larger than the cards.
+* ``cli.train --mesh_disp 2`` trains disparity-sharded and ``cli.search
+  --mesh_disp 2`` replicates over the disp ranks: each runs to its end, its
+  first loss that of the ``--mesh_disp 1`` run;
+* what the drivers refuse: on ``cuda`` a mesh larger than the cards.
 """
 
 import json
@@ -135,12 +137,53 @@ def test_train_under_a_launcher_world_of_one(workspace, tmp_path, monkeypatch): 
     assert (tmp_path / "sceneflow-train" / "launched" / "checkpoints" / "final" / "1.pth").is_file()
 
 
-@pytest.mark.parametrize("driver", [train, search])
-def test_disparity_sharded_training_refused(workspace, driver):  # noqa: F811
+def _log(exp) -> list[dict]:
+    return [json.loads(line) for line in (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
+
+
+def test_disparity_sharded_train_driver(workspace, tmp_path):  # noqa: F811
+    """``train --mesh_disp 2``: the two ranks share each step's volume; the
+    first loss is the one-process run's; both epochs validate, which the
+    sharded forward of rank 0 can only do with rank 1 beside it (its
+    collectives span the disp ranks), to the one-process run's averages;
+    rank 0 writes the checkpoint."""
     root, _, _ = workspace
-    args = _data_args(root) + ["--device", "cpu", "--mesh_disp", "2"]
-    with pytest.raises(NotImplementedError, match="mesh_disp"):
-        driver.main(args)
+    base = _model_args(root) + _data_args(root) + [
+        "--device", "cpu", "--batch_size", "2", "--test_batch_size", "1", "--epochs", "2",
+        "--loop_mode", "n_epochs", "--ckpt_period", "0", "--run_root", str(tmp_path),
+    ]
+    assert train.main(base + ["--experiment", "one"]) == 0
+    assert train.main(base + ["--mesh_disp", "2", "--experiment", "disp"]) == 0
+    one, two = (_log(tmp_path / "sceneflow-train" / e) for e in ("one", "disp"))
+    first = [[line["loss"] for line in log if "loss" in line] for log in (one, two)]
+    assert len(first[1]) == 1 and np.isfinite(first[1][0])  # logged once, by rank 0
+    np.testing.assert_allclose(first[1][0], first[0][0], rtol=TOL_SAME)
+    vals = [[line for line in log if "val_epe" in line] for log in (one, two)]
+    assert [line["epoch"] for line in vals[1]] == [0, 1]
+    np.testing.assert_allclose([v["val_epe"] for v in vals[1]], [v["val_epe"] for v in vals[0]], rtol=TOL_PX)
+    ckpts = tmp_path / "sceneflow-train" / "disp" / "checkpoints"
+    assert (ckpts / "final" / "2.pth").is_file()
+    model = build_model(predict_parser().parse_args(_model_args(root) + _data_args(root) + ["--device", "cpu"]))
+    load_state_dict_file(str(ckpts / "final" / "2.pth"), model)
+    assert int(model.matching.stem1.bn.num_batches_tracked) == 4  # two epochs of two steps
+
+
+def test_search_driver_replicates_over_disp(tmp_path):
+    """``search --mesh_disp 2`` replicates, as the JAX driver: both ranks
+    take the same steps on the same rows; the first loss is the one-process
+    run's, and rank 0 validates and writes the checkpoints."""
+    from test_torch_search_cli import ARGS
+
+    base = ARGS + ["--device", "cpu", "--epochs", "2", "--run_root", str(tmp_path)]
+    assert search.main(base + ["--experiment", "one"]) == 0
+    assert search.main(base + ["--mesh_disp", "2", "--experiment", "disp"]) == 0
+    one, two = (_log(tmp_path / "sceneflow_part-search" / e) for e in ("one", "disp"))
+    first = [[line["loss"] for line in log if "loss" in line] for log in (one, two)]
+    assert len(first[1]) == 1 and np.isfinite(first[1][0])
+    np.testing.assert_allclose(first[1][0], first[0][0], rtol=TOL_SAME)
+    assert [line["epoch"] for line in two if "val_err3" in line] == [0, 1]
+    ckpts = tmp_path / "sceneflow_part-search" / "disp" / "checkpoints"
+    assert {p.parent.name for p in ckpts.rglob("*.pth")} == {"best", "latest"}
 
 
 def test_cuda_mesh_needs_a_card_per_rank(workspace, monkeypatch):  # noqa: F811

@@ -90,21 +90,59 @@ def task_exchange(inp, mesh):
     return out
 
 
+def task_adjoint(inp, mesh):
+    """The gradient that each sharded op gives this rank's slab (float64):
+    of ``sum(out * g)`` with ``g`` this rank's slice of a cotangent over the
+    op's global output (``fetch_planes``, ``halo``, the sharded resize3d),
+    or ``g`` whole where every rank returns the whole map (the sharded
+    soft-argmins)."""
+    import torch
+
+    from leastereo_tpu_torch.ops.resize import resize3d
+    from leastereo_tpu_torch.ops.softargmin import soft_argmin_fast_sharded, soft_argmin_sharded
+    from leastereo_tpu_torch.parallel import DispPartition, fetch_planes, halo
+
+    out = {}
+    for depth in inp["depths"]:
+        part = DispPartition(depth, mesh.disp, mesh.disp_index, mesh.disp_group)
+        lo, hi = part.lo, part.hi
+        ops = {
+            "fetch": (2, lambda x: fetch_planes(x, part, [a - 2 for a, _ in part.bounds], [b + 2 for _, b in part.bounds]),
+                      lambda g: g[:, :, lo : hi + 4]),
+            "halo": (2, lambda x: halo(x, part), lambda g: g[:, :, lo : hi + 2]),
+            "softargmin": (1, lambda c: soft_argmin_sharded(c, part, 3 * depth), lambda g: g),
+            "fast": (1, lambda c: soft_argmin_fast_sharded(c, part, 3 * depth), lambda g: g),
+        }
+        for size in inp["sizes"][depth]:
+            out_part = part.of_depth(size[0])
+            ops[f"resize{size[0]}"] = (2, lambda x, size=size: resize3d(x, size, part=part),
+                                       lambda g, p=out_part: g[:, :, p.lo : p.hi])
+        for name, (dim, fn, mine) in ops.items():
+            src = inp[f"cost{depth}" if dim == 1 else f"vol{depth}"]
+            slab = _slab(torch.from_numpy(src), part, dim).clone().requires_grad_()
+            (fn(slab) * mine(torch.from_numpy(inp[f"g_{name}{depth}"]))).sum().backward()
+            out[f"{name}{depth}"] = slab.grad
+    return out
+
+
 def task_forward(inp, mesh):
-    """The disparity-sharded eval forward of the model in ``inp``."""
+    """The disparity-sharded eval forward of the model in ``inp``, once for
+    each config override in ``inp["variants"]`` (by default without and
+    with ``return_entropy``)."""
     import torch
 
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
 
     out = {}
     left, right = (torch.from_numpy(inp[k]) for k in ("left", "right"))
-    for entropy in (False, True):
-        cfg = LEAStereoConfig(**inp["config"], cost_volume_pspec=("data", "disp"), return_entropy=entropy)
+    variants = inp.get("variants", {f"entropy={e}": {"return_entropy": e} for e in (False, True)})
+    for name, override in variants.items():
+        cfg = LEAStereoConfig(**inp["config"], cost_volume_pspec=("data", "disp"), **override)
         model = best_sceneflow_model(cfg, device="cpu")
         model.load_state_dict(inp["state_dict"])
         model.mesh = mesh
         with torch.no_grad():
-            out[f"entropy={entropy}"] = model(left, right)
+            out[name] = model(left, right)
     return out
 
 
@@ -122,13 +160,15 @@ def _step_outputs(model, metrics):
 
 
 def task_train_step(inp, mesh):
-    """A data-parallel eval step, then one data-parallel Adam train step, on
-    this rank's rows of the global batch."""
+    """A data-parallel (and, with a config sharding the cost volume,
+    disparity-sharded) eval step, then one such Adam train step, on this
+    rank's rows of the global batch."""
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
     from leastereo_tpu_torch.train import eval_step, make_optimizer, train_step
 
     model = best_sceneflow_model(LEAStereoConfig(**inp["config"]), device="cpu")
     model.load_state_dict(inp["state_dict"])
+    model.mesh = mesh
     opt = make_optimizer(model.parameters(), "adam", inp["lr"])
     rows = _rows(inp["batch"], mesh)
     eval_metrics = eval_step(model, rows, inp["config"]["maxdisp"], mesh=mesh)[1]
