@@ -12,16 +12,22 @@ caught, so any failure exits non-zero):
    its plain PyTorch version evaluated in float64, on peaky (trained-like),
    wide (the peaky cost scaled 10x, a span of hundreds of units) and
    diffuse inputs (the checks of ``leastereo_tpu_torch/utils/kernel_parity.py``):
-   the sm90 fused head (bf16 volume), the fp32 sm90 fused
-   head (fp32 volume), the first fused head design (fp32 and bf16 volumes)
-   and the band kernel; the band kernel and both sm90 heads on a 300x cost
-   beside the fp32 plain version, all against float64 (a measurement: there
-   fp32 rounding of the cost alone moves the result by ~3e-3 px); then their
-   times on one bf16 input beside the unfused yardstick (cuDNN ``last_3``
-   conv + band kernel), the fp32 sm90 head and the first design in turns on
-   a KITTI fp32 volume beside the unfused fp32 yardstick (cuDNN fp32
-   ``last_3`` with TF32 off + band kernel), the band kernel's grid and
-   occupancy, and the first design's time at shapes that show what limits it.
+   each route of the fused head (the in-place routes on a bf16 and an fp32
+   volume, the repitch routes on the same volumes 4 bytes past a 16-byte
+   boundary) and the band kernel; the band kernel and both TMA heads on a
+   300x cost beside the fp32 plain version, all against float64 (a
+   measurement: there fp32 rounding of the cost alone moves the result by
+   ~3e-3 px); then the TMA heads' times in turns with their unfused
+   yardsticks (cuDNN ``last_3`` in the volume's type, TF32 off, + band
+   kernel), the band kernel's time, grid and occupancy; the route shapes
+   (``utils/kernel_parity.ROUTE_SHAPES``: padded and grouped channels,
+   widths TMA cannot read in place, an unaligned base), each launching its
+   route once and
+   within 2e-3 px of float64 on the three kinds of input, timed in turns
+   with its yardstick beside the retired first design's last time (cited
+   from PERF.md); and where the body's time goes: padded channels (C = 24
+   against 32) and the repitch copy (the repitch routes forced on the
+   volumes the in-place routes read).
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
    eval, random seeded weights: first the in-model fused path of
    ``kernel_parity`` (the model's map against float64 on the volume and
@@ -35,8 +41,12 @@ caught, so any failure exits non-zero):
 6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48
    (the fp32 sm90 head and the band kernel; counts zeroed just before and
    read just after); then the same with a 24-channel matching net
-   (``mat_filter_multiplier`` 6), which both sm90 gates refuse, so the first
-   fused head design serves it (one launch, none of the other heads).
+   (``mat_filter_multiplier`` 6), whose volume the fp32 TMA route takes with
+   its channels padded to 32 (one launch, none of the other heads); then the
+   op ``torch.ops.leastereo.conv_soft_argmin`` on volumes TMA cannot read in
+   place (bf16 w = 412, bf16 at +4 bytes, fp32 w = 414; a model's volume
+   never is one): the repitch routes, 2 and 1 launches, each within 2e-3 px of
+   float64.
 7. gate refusal: a cost the band kernel refuses raises on the card.
 8. cli: the predict and evaluate drivers (``leastereo_tpu_torch.cli``)
    called in-process on the bundled KITTI frames (``dataset/kitti15_part``)
@@ -141,6 +151,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from leastereo_tpu_torch.utils import kernel_parity
 from leastereo_tpu_torch.utils.kernel_parity import WIDE, calibrate_head, head_inputs, peaky_cost
@@ -157,7 +168,7 @@ PEAK_SFU_S = 16 * 132 * 1.98e9
 
 # Kernel-name patterns for the per-frame device-time breakdown (first match wins).
 KERNEL_GROUPS = (
-    ("head kernels (this port)", ("head_kernel", "head_sm90_kernel", "head_sm90_f32_kernel", "band_kernel")),
+    ("head kernels (this port)", ("head_sm90_kernel", "head_sm90_f32_kernel", "band_kernel")),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm", "sm90_", "sm80_")),
     ("trilinear/bilinear resize", ("upsample",)),
@@ -257,6 +268,78 @@ def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, s
 
 
 SPAN_300 = 300.0  # scale of the cost in phase wide_span_300x
+# The retired first fused head design's last times, ms, cited beside the
+# routes that replace it in phases kernel_times and route_shape, not
+# measured here (PERF.md section 6: the KITTI volumes, PR 9; the route
+# shapes, the "shape" lines of utils/head_routes_bench.py in turns with each
+# route, PR 12).
+FIRST_DESIGN_MS = {"kitti_bf16": 1.4139616012573242, "kitti_fp32": 1.2691791534423829,
+                   "c24": 1.059390106201172, "c12_search_widths": 0.551267204284668,
+                   "c80_groups": 3.3366732788085938, "w412": 1.3552371215820314,
+                   "w414_f32": 1.2516390228271483, "unaligned": 1.0566496276855468}
+# The route each shape of utils/kernel_parity.ROUTE_SHAPES takes.
+SHAPE_ROUTES = {"c24": "sm90", "c12_search_widths": "sm90", "c80_groups": "sm90", "w412": "sm90_repitch",
+                "w414_f32": "sm90_f32_repitch", "unaligned": "sm90_repitch"}
+
+
+def route_shapes_phase(gen, maxdisp: int, dev, card: str) -> dict:
+    """Phase 3, the route shapes (``utils/kernel_parity.ROUTE_SHAPES``): each
+    volume, through ``conv_soft_argmin_cuda``, launches its route of
+    ``SHAPE_ROUTES`` once and lands within TOL_KERNEL_PX of float64 on
+    peaky, wide and diffuse inputs; then, on the diffuse one, the route and
+    its two-call yardstick (cuDNN ``last_3`` in the volume's type, TF32 off,
+    then the band kernel) in turns (route, yardstick, yardstick, route; best
+    of two), the plain version once, and the bound. One line a shape; raises
+    on a wrong route or error."""
+    from leastereo_tpu_torch.ops.fused_head import (
+        ROUTE_WRAPPERS,
+        conv_soft_argmin_cuda,
+        conv_soft_argmin_reference,
+        fused_head_route,
+    )
+    from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
+    res = {}
+    for name, (shape, dtype_name, offset) in kernel_parity.ROUTE_SHAPES.items():
+        dtype = getattr(torch, dtype_name)
+        b, c, d, h, w = shape
+        route = SHAPE_ROUTES[name]
+        line = {"phase": "route_shape", "card": card, "name": name, "shape": list(shape), "dtype": dtype_name,
+                "offset_bytes": offset, "route": route, "tol_px": TOL_KERNEL_PX}
+        for kind in kernel_parity.KINDS:
+            vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
+            vol = kernel_parity.offset_copy(vol32.to(dtype), offset)
+            del vol32
+            if fused_head_route(c, d, w, maxdisp, dtype, aligned=vol.data_ptr() % 16 == 0) != route:
+                raise AssertionError(f"{name}: route is not {route}")
+            n = {r: fn.launches for r, fn in ROUTE_WRAPPERS.items()}
+            got = conv_soft_argmin_cuda(vol, kern, maxdisp)
+            torch.cuda.synchronize()
+            if {r: fn.launches - n[r] for r, fn in ROUTE_WRAPPERS.items()} != {r: int(r == route) for r in n}:
+                raise AssertionError(f"{name}: not one launch of {route}")
+            ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
+            line[f"{kind}_max_abs_err_px"] = (got.double() - ref).abs().max().item()
+            del got, ref
+        kern_t = kern.to(dtype)
+        fns = {"route": lambda: conv_soft_argmin_cuda(vol, kern, maxdisp),
+               "yardstick": lambda: soft_argmin_cuda(F.conv3d(vol, kern_t, padding=1)[:, 0].float(), maxdisp)}
+        turns = {key: [] for key in fns}
+        for key in ("route", "yardstick", "yardstick", "route"):
+            turns[key].append(cuda_ms(fns[key]))
+        out_bytes = b * 9 * h * w * 4
+        head_bound = bound(vol.numel() * vol.element_size() + kern.numel() * 4 + out_bytes,
+                           2 * 27 * c * b * d * h * w, dtype, b * 9 * h * w * d)
+        line.update({"ms": min(turns["route"]), "yardstick_ms": min(turns["yardstick"]), "turns_ms": turns,
+                     "plain_ms": cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=3),
+                     "bound_ms": head_bound[0], "bound_by": head_bound[1],
+                     "first_design_ms_cited": FIRST_DESIGN_MS[name]})
+        line["max_abs_err"] = max(line[f"{k}_max_abs_err_px"] for k in kernel_parity.KINDS)
+        emit(line)
+        if not line["max_abs_err"] < TOL_KERNEL_PX:
+            raise AssertionError(f"{name}: {line['max_abs_err']} px from float64")
+        res[name] = line
+        del vol, kern, kern_t
+        torch.cuda.empty_cache()
+    return res
 
 
 def _timed(fn, ms: list):
@@ -973,12 +1056,12 @@ def collective_clock(stats: dict):
 
 
 def head_counters() -> dict:
-    """The launch counters of the four head kernels, by kernel."""
-    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32
+    """The launch counters of the head kernels, by kernel: the fused head's
+    four routes and the band kernel."""
+    from leastereo_tpu_torch.ops.fused_head import ROUTE_WRAPPERS
     from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda
 
-    return {"fused_head_sm90": conv_soft_argmin_sm90, "fused_head_sm90_f32": conv_soft_argmin_sm90_f32,
-            "fused_head": conv_soft_argmin_simt, "band_soft_argmin": soft_argmin_cuda}
+    return {**{f"fused_head_{route}": fn for route, fn in ROUTE_WRAPPERS.items()}, "band_soft_argmin": soft_argmin_cuda}
 
 
 def _par_rows(batch: dict, rank: int, world: int, order=None) -> dict:
@@ -1486,10 +1569,10 @@ def main() -> int:
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
     from leastereo_tpu_torch.ops import _build
     from leastereo_tpu_torch.ops.fused_head import (
+        ROUTE_WRAPPERS,
         conv_soft_argmin_cuda,
         conv_soft_argmin_fused,
         conv_soft_argmin_reference,
-        conv_soft_argmin_simt,
         conv_soft_argmin_sm90,
         conv_soft_argmin_sm90_f32,
     )
@@ -1522,7 +1605,7 @@ def main() -> int:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
-          "built": ["fused_head_sm90", "fused_head_sm90_f32", "fused_head", "band_soft_argmin"],
+          "built": list(counters),
           "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions at the main path's shapes
@@ -1535,7 +1618,7 @@ def main() -> int:
     for check in parity:
         emit_check(check)
     errs = {name: max(c["max_abs_err"] for c in parity if c["kernel"] == name)
-            for name in ("fused_head_sm90", "fused_head_sm90_f32", "fused_head")}
+            for name, *_ in kernel_parity.HEAD_ROUTES}
     band_err = max(c["max_abs_err"] for c in parity if c["kernel"] == "band_soft_argmin")
 
     # A 300x cost (a span of thousands of units): the kernels and the fp32
@@ -1562,29 +1645,19 @@ def main() -> int:
     cost = kernel_parity.band_cost(gen, "diffuse", b, d, h, w, dev)
     vol = vol32.to(torch.bfloat16)  # main path: bf16 volume
     kern16 = kern.to(torch.bfloat16)
-    # Both fused heads and the unfused yardstick (cuDNN last_3 conv, then the
-    # band kernel; the port does not run this pair on this route) in turns.
-    unfused = lambda: soft_argmin_cuda(torch.nn.functional.conv3d(vol, kern16, padding=1)[:, 0].float(), maxdisp)
-    sm90_ms = [cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp))]
-    head_ms = [cuda_ms(lambda: conv_soft_argmin_simt(vol, kern, maxdisp))]
-    unfused_ms = [cuda_ms(unfused)]
-    head_ms.append(cuda_ms(lambda: conv_soft_argmin_simt(vol, kern, maxdisp)))
-    sm90_ms.append(cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp)))
-    unfused_ms.append(cuda_ms(unfused))
+    # The bf16 and fp32 TMA heads beside their unfused yardsticks (cuDNN
+    # last_3 in the volume's type, TF32 off, then the band kernel; the port
+    # does not run this pair on this route), in turns, best of two each.
+    unfused = lambda: soft_argmin_cuda(F.conv3d(vol, kern16, padding=1)[:, 0].float(), maxdisp)
+    unfused32 = lambda: soft_argmin_cuda(F.conv3d(vol32, kern, padding=1)[:, 0], maxdisp)
+    fns = {"sm90": lambda: conv_soft_argmin_sm90(vol, kern, maxdisp), "unfused": unfused,
+           "sm90_f32": lambda: conv_soft_argmin_sm90_f32(vol32, kern, maxdisp), "unfused_fp32": unfused32}
+    turns = {key: [] for key in fns}
+    for key in ("sm90", "unfused", "unfused", "sm90", "sm90_f32", "unfused_fp32", "unfused_fp32", "sm90_f32"):
+        turns[key].append(cuda_ms(fns[key]))
+    sm90_ms, unfused_ms, sm90_f32_ms, unfused32_ms = (min(turns[k]) for k in fns)
     sm90_bf16w_ms = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern16, maxdisp))
-    sm90_ms, head_ms, unfused_ms = min(sm90_ms), min(head_ms), min(unfused_ms)
     head_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
-    # A KITTI fp32 volume (checked against float64 above): the fp32 sm90
-    # head, the first design and the unfused fp32 yardstick (cuDNN fp32
-    # last_3 with TF32 off, then the band kernel; the port does not run this
-    # pair on this route) in turns, best of two each.
-    unfused32 = lambda: soft_argmin_cuda(torch.nn.functional.conv3d(vol32, kern, padding=1)[:, 0], maxdisp)
-    f32_turns = {"sm90_f32": [], "first": [], "unfused": []}
-    for key in ("sm90_f32", "first", "unfused", "unfused", "first", "sm90_f32"):
-        fn = {"sm90_f32": lambda: conv_soft_argmin_sm90_f32(vol32, kern, maxdisp),
-              "first": lambda: conv_soft_argmin_simt(vol32, kern, maxdisp), "unfused": unfused32}[key]
-        f32_turns[key].append(cuda_ms(fn))
-    sm90_f32_ms, head_fp32_ms, unfused32_ms = (min(f32_turns[k]) for k in ("sm90_f32", "first", "unfused"))
     head_fp32_plain_ms = cuda_ms(lambda: conv_soft_argmin_reference(vol32, kern, maxdisp), iters=5)
     band_ms = cuda_ms(lambda: soft_argmin_cuda(cost, maxdisp))
     band_plain_ms = cuda_ms(lambda: soft_argmin(cost, maxdisp), iters=5)
@@ -1595,24 +1668,24 @@ def main() -> int:
     head_fp32_bound = bound(vol32.numel() * 4 + kern.numel() * 4 + out_bytes, head_flops, torch.float32, exps)
     band_bound = bound(cost.numel() * 4 + out_bytes, 0, torch.float32, exps)
     emit({"phase": "kernel_times", "card": card, "fused_head_sm90_ms": sm90_ms,
-          "fused_head_sm90_bf16_weights_ms": sm90_bf16w_ms, "fused_head_pr1_ms": head_ms,
-          "unfused_ms": unfused_ms, "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
+          "fused_head_sm90_bf16_weights_ms": sm90_bf16w_ms, "unfused_ms": unfused_ms,
+          "fused_head_plain_ms": head_plain_ms, "fused_head_bound_ms": head_bound[0],
           "band_ms": band_ms, "band_plain_ms": band_plain_ms, "band_bound_ms": band_bound[0],
           "band_bound_by": band_bound[1], "exponentials": exps,
           "fused_head_sm90_f32_ms": sm90_f32_ms, "fused_head_sm90_f32_stages": _build.head_sm90_f32_stages(c, d),
-          "fused_head_sm90_f32_smem_bytes": _build.head_sm90_f32_smem_bytes(c, d),
-          "fused_head_first_design_fp32_volume_ms": head_fp32_ms, "unfused_fp32_ms": unfused32_ms,
-          "fp32_volume_turns_ms": f32_turns, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
+          "fused_head_sm90_f32_smem_bytes": _build.head_sm90_f32_smem_bytes(c, d), "unfused_fp32_ms": unfused32_ms,
+          "turns_ms": turns, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
           "fused_head_fp32_volume_bound_ms": head_fp32_bound[0], "fused_head_fp32_volume_bound_by": head_fp32_bound[1],
           "fused_head_sm90_f32_share_of_bound": head_fp32_bound[0] / sm90_f32_ms,
-          "fused_head_sm90_f32_speedup_over_first_design": head_fp32_ms / sm90_f32_ms,
+          "first_design_ms_cited": {k: FIRST_DESIGN_MS[k] for k in ("kitti_bf16", "kitti_fp32")},
           "fp32_volume_mb": vol32.numel() * 4 / 1e6, "peak_bytes_s": PEAK_BYTES_S,
-          "note": "ms: best of two turns (bf16: sm90, first design, unfused, first design, sm90, unfused; "
-                  "fp32 volume: sm90_f32, first design, unfused fp32, unfused fp32, first design, sm90_f32); "
-                  "fused heads take the fp32 kernel, the unfused bf16 cuDNN conv its bf16 rounding, the unfused "
-                  "fp32 one runs with TF32 off"})
-    if not sm90_f32_ms < head_fp32_ms:
-        raise AssertionError(f"fp32 sm90 head {sm90_f32_ms} ms is not faster than the first design's {head_fp32_ms} ms")
+          "note": "ms: best of two turns (sm90, unfused, unfused, sm90, sm90_f32, unfused fp32, unfused fp32, "
+                  "sm90_f32); fused heads take the fp32 kernel, the unfused bf16 cuDNN conv its bf16 rounding, the "
+                  "unfused fp32 one runs with TF32 off; first_design_ms_cited: the retired first design's last "
+                  "times (PERF.md section 6), not measured here"})
+    if not sm90_f32_ms < FIRST_DESIGN_MS["kitti_fp32"] / 2 or not sm90_ms < FIRST_DESIGN_MS["kitti_bf16"] / 2:
+        raise AssertionError(f"TMA heads {sm90_ms}, {sm90_f32_ms} ms are not twice as fast as the first design's "
+                             f"{FIRST_DESIGN_MS}")
 
     # The band kernel's grid at KITTI against the card's resident-block slots.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1624,33 +1697,36 @@ def main() -> int:
     if band_per_sm < 1:
         raise AssertionError(f"band kernel occupancy query failed: {band_per_sm}")
 
-    # What limits the first design (head_kernel<bf16>, 8 x 32 tiles, one
-    # 512-thread block per SM by shared memory and registers): its time at
-    # half the rows (104 blocks, one wave on 132 SMs, against 208 in two),
-    # at half the channels, and on an fp32 volume, plus the rates its KITTI
-    # time implies. Shared-memory traffic counts its code's accesses: per
-    # block and channel, D * (TH+4)(TW+4) staged stores and, per work item
-    # ((TH+2)(TW+2) sites x ceil(D/8)), 90 slab loads and 8 tile updates.
-    v_h64 = vol[:, :, :, : h // 2].contiguous()
-    v_c16, k_c16 = vol[:, : c // 2].contiguous(), kern[:, : c // 2].contiguous()
-    v_f32 = vol.float()
-    th, tw, dch = _build.TILE_H, _build.TILE_W, _build.DCHUNK
-    blocks = b * -(-h // th) * -(-w // tw)
-    items = (th + 2) * (tw + 2) * -(-d // dch)
-    smem_bytes = 4 * blocks * c * (d * (th + 4) * (tw + 4) + items * (90 + 2 * dch))
-    emit({"phase": "head_profile", "card": card, "kernel": "head_kernel<bf16> (first design)",
-          "ms_kitti": head_ms, "ms_half_rows_one_wave": cuda_ms(lambda: conv_soft_argmin_simt(v_h64, kern, maxdisp)),
-          "ms_half_channels": cuda_ms(lambda: conv_soft_argmin_simt(v_c16, k_c16, maxdisp)),
-          "ms_fp32_volume": cuda_ms(lambda: conv_soft_argmin_simt(v_f32, kern, maxdisp)),
-          "blocks": blocks, "sms": torch.cuda.get_device_properties(0).multi_processor_count,
-          "dram_gb_s": (vol.numel() * 2 + out_bytes) / head_ms / 1e6,
-          "smem_tb_s": smem_bytes / head_ms / 1e9,
-          "fma_tflop_s": 2 * 27 * blocks * c * items * dch / head_ms / 1e9,
-          "sm90_dram_gb_s": (vol.numel() * 2 + out_bytes) / sm90_ms / 1e6,
-          # The sm90 kernel (8 x 16 tiles, two blocks per SM): 27 x 16 = 432
-          # blocks at KITTI, 1.64 waves of 264 slots; half the rows, one wave.
-          "sm90_ms_half_rows": cuda_ms(lambda: conv_soft_argmin_sm90(v_h64, kern, maxdisp))})
-    del vol32, vol, cost, v_h64, v_c16, v_f32
+    # The routes at the shapes the first design alone took before (padded
+    # and grouped channels, rows TMA cannot read in place, an unaligned base): each
+    # against float64 on peaky, wide and diffuse inputs, then timed in turns
+    # with its yardstick on the diffuse one.
+    routes = route_shapes_phase(gen, maxdisp, dev, card)
+
+    # Where the body's time goes: the padded channels' cost (the C = 24
+    # volume against the C = 32 one, both in place) and the repitch copy's
+    # (the repitch routes forced on the KITTI volumes the in-place routes
+    # read), in turns, best of two.
+    v24 = vol[:, :24].contiguous()
+    k24 = kern[:, :24].contiguous()
+    fns = {"c32_tma": lambda: conv_soft_argmin_sm90(vol, kern, maxdisp),
+           "c24_tma": lambda: conv_soft_argmin_sm90(v24, k24, maxdisp),
+           "c32_repitch": lambda: ROUTE_WRAPPERS["sm90_repitch"](vol, kern, maxdisp),
+           "c32_f32_tma": lambda: conv_soft_argmin_sm90_f32(vol32, kern, maxdisp),
+           "c32_f32_repitch": lambda: ROUTE_WRAPPERS["sm90_f32_repitch"](vol32, kern, maxdisp)}
+    prof = {key: [] for key in fns}
+    for key in ("c32_tma", "c24_tma", "c32_repitch", "c32_f32_tma", "c32_f32_repitch",
+                "c32_f32_repitch", "c32_f32_tma", "c32_repitch", "c24_tma", "c32_tma"):
+        prof[key].append(cuda_ms(fns[key]))
+    best = {k: min(v) for k, v in prof.items()}
+    emit({"phase": "head_profile", "card": card, "shape": [b, c, d, h, w], "ms": best, "turns_ms": prof,
+          "padded_channels_c24_over_c32": best["c24_tma"] / best["c32_tma"],
+          "bytes_c24_over_c32": 24 / 32,
+          "repitch_over_in_place_bf16": best["c32_repitch"] / best["c32_tma"],
+          "repitch_over_in_place_fp32": best["c32_f32_repitch"] / best["c32_f32_tma"],
+          "sm90_dram_gb_s": (vol.numel() * 2 + out_bytes) / best["c32_tma"] / 1e6,
+          "sm90_repitch_dram_gb_s": (vol.numel() * 2 + out_bytes) / best["c32_repitch"] / 1e6})
+    del vol32, vol, cost, v24
     torch.cuda.empty_cache()
 
     # ---- 4. main path at KITTI
@@ -1718,7 +1794,6 @@ def main() -> int:
             "fused_stem0_ms": cuda_ms(lambda: model.matching.stem0(fl, fr, d), iters=5),
             "matching_net_ms": cuda_ms(lambda: model.matching(fl, fr, d), iters=5),
             "fused_head_ms": cuda_ms(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp), iters=5),
-            "fused_head_pr1_ms": cuda_ms(lambda: conv_soft_argmin_simt(pre, k3, maxdisp), iters=5),
             "last_3_conv_plus_band_ms": cuda_ms(
                 lambda: soft_argmin_cuda(model.matching.last_3(pre)[:, 0].float(), maxdisp), iters=5),
             # Host time to enqueue one head through the custom op and through
@@ -1813,16 +1888,17 @@ def main() -> int:
     fp32_launches = read_counts()  # the default forward's head and the entropy forward's band kernel
     emit({"phase": "model_kernel_vs_plain", "shape": [1, hs, ws], "maxdisp": md, "dtype": "float32",
           "tol_px": TOL_MODEL_PX, "launches": fp32_launches, **results})
-    if fp32_launches != {"fused_head_sm90": 0, "fused_head_sm90_f32": 1, "fused_head": 0, "band_soft_argmin": 1}:
+    if fp32_launches != {k: int(k in ("fused_head_sm90_f32", "band_soft_argmin")) for k in counters}:
         raise AssertionError(f"fp32 default forward launched {fp32_launches}")
     for name, r in results.items():
         if r["kernel"] is None or not r["max_abs_diff_px"] < TOL_MODEL_PX:
             raise AssertionError(f"whole model {name}: {r}")
 
-    # The first fused head design's path: the fp32 model with a 24-channel
-    # matching net (mat_filter_multiplier 6, as a user's own search or
-    # training may give), whose C both sm90 gates refuse; kernel path against
-    # plain path as above, counts zeroed just before and read just after.
+    # The padded-channel path: the fp32 model with a 24-channel matching net
+    # (mat_filter_multiplier 6, as a user's own search or training may give),
+    # whose volume the fp32 TMA route takes with its channels padded to 32;
+    # kernel path against plain path as above, counts zeroed just before and
+    # read just after.
     cfg24 = {"maxdisp": md, "compute_dtype": "float32", "mat_filter_multiplier": 6}
     k24 = best_sceneflow_model(LEAStereoConfig(**cfg24), seed=3)
     calibrate_head(k24, left_s, right_s)
@@ -1832,16 +1908,48 @@ def main() -> int:
     with torch.inference_mode():
         got24 = k24(left_s, right_s)
         torch.cuda.synchronize()
-    first_launches = read_counts()
+    padded_launches = read_counts()
     with torch.inference_mode():
-        first_err = (got24 - p24(left_s, right_s)).abs().max().item()
-    first_path = {"phase": "first_design_path", "card": card, "shape": [1, hs, ws], "maxdisp": md,
-                  "dtype": "float32", "mat_filter_multiplier": 6, "channels": 24, "launches": first_launches,
-                  "max_abs_diff_px": first_err, "tol_px": TOL_MODEL_PX, "disp_std": got24.std().item()}
-    emit(first_path)
-    if first_launches != {k: 1 if k == "fused_head" else 0 for k in counters} or not first_err < TOL_MODEL_PX:
-        raise AssertionError(f"first design path: {first_path}")
+        padded_err = (got24 - p24(left_s, right_s)).abs().max().item()
+    padded_path = {"phase": "padded_channels_path", "card": card, "shape": [1, hs, ws], "maxdisp": md,
+                   "dtype": "float32", "mat_filter_multiplier": 6, "channels": 24,
+                   "entry_channels": _build.head_sm90_entry_channels(24), "launches": padded_launches,
+                   "max_abs_diff_px": padded_err, "tol_px": TOL_MODEL_PX, "disp_std": got24.std().item()}
+    emit(padded_path)
+    if padded_launches != {k: int(k == "fused_head_sm90_f32") for k in counters} or not padded_err < TOL_MODEL_PX:
+        raise AssertionError(f"padded-channel path: {padded_path}")
     del k24, p24, got24
+
+    # The repitch routes' path: a model's volume is always read in place
+    # (its matching net needs w, the width at 1/3 resolution, to be a
+    # multiple of 8), so these routes serve callers of the op on volumes TMA
+    # cannot read in place. The op torch.ops.leastereo.conv_soft_argmin on
+    # the route shapes w412 and unaligned (bf16) and w414_f32 (fp32), peaky
+    # inputs, counts zeroed just before and read just after, each against the
+    # plain path in float64.
+    op_inputs = []
+    for name in ("w412", "unaligned", "w414_f32"):
+        shape, dtype_name, offset = kernel_parity.ROUTE_SHAPES[name]
+        vol_o, kern_o = head_inputs(gen, "peaky", *shape, dev)
+        op_inputs.append((name, kernel_parity.offset_copy(vol_o.to(getattr(torch, dtype_name)), offset), kern_o))
+        del vol_o
+    zero_counts()
+    with torch.inference_mode():
+        op_out = [torch.ops.leastereo.conv_soft_argmin(v, k, maxdisp) for _, v, k in op_inputs]
+        torch.cuda.synchronize()
+    op_launches = read_counts()
+    op_errs = {}
+    for (name, v, k), got in zip(op_inputs, op_out):
+        op_errs[name] = (got.double() - conv_soft_argmin_reference(v.double(), k.double(), maxdisp)).abs().max().item()
+    op_path = {"phase": "repitch_op_path", "card": card, "entry": "torch.ops.leastereo.conv_soft_argmin",
+               "shapes": [n for n, *_ in op_inputs], "launches": op_launches, "max_abs_err_px": op_errs,
+               "tol_px": TOL_KERNEL_PX}
+    emit(op_path)
+    if (op_launches != {k: {"fused_head_sm90_repitch": 2, "fused_head_sm90_f32_repitch": 1}.get(k, 0) for k in counters}
+            or not max(op_errs.values()) < TOL_KERNEL_PX):
+        raise AssertionError(f"repitch op path: {op_path}")
+    del op_inputs, op_out
+    torch.cuda.empty_cache()
 
     # ---- 7. a cost the kernels refuse raises on the card: maxdisp 50 gives
     # D = 16 != 50 / 3, so the fused head falls to the band kernel, whose
@@ -1898,34 +2006,54 @@ def main() -> int:
     # launches: each kernel's count over the run of the path that uses it,
     # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
     # head), its confidence forward (phase 4, band kernel), the fp32 default
-    # forward (phase 6, fp32 sm90 head), the fp32 forward with a 24-channel
-    # matching net (phase 6, first fused head design); fp32_frame_launches: the four fp32 KITTI
-    # frames of phase 5; finetune_launches: over the fine-tune's train steps
-    # and val frames (phase 10, zeroed just before); train_*: phase 10's check
-    # and times at the fine-tune's shapes (band kernel: the train cost (4, 64,
-    # 96, 192); sm90 head: the val volume); export_launches: over the loaded
-    # .pt2 programs' frames (phase 9, zeroed just before each); fp32_volume_*:
-    # on a KITTI fp32 volume (phase 3); search_launches: over the reference
-    # search's weight steps, arch steps and val frames (phase 11, zeroed just
-    # before); search_ms, search_plain_ms, search_bound_ms,
-    # search_max_abs_err: the band kernel at the search cost (2, 64, 64, 128);
-    # search_decode_launches: the decoded network's KITTI frame (phase 11);
+    # forward (phase 6, fp32 sm90 head), the op on volumes TMA cannot read in
+    # place (phase 6, the repitch routes); padded_channels_path_launches: the fp32
+    # forward with a 24-channel matching net (phase 6); fp32_frame_launches:
+    # the four fp32 KITTI frames of phase 5; finetune_launches: over the
+    # fine-tune's train steps and val frames (phase 10, zeroed just before);
+    # train_*: phase 10's check and times at the fine-tune's shapes (band
+    # kernel: the train cost (4, 64, 96, 192); sm90 head: the val volume);
+    # export_launches: over the loaded .pt2 programs' frames (phase 9, zeroed
+    # just before each); search_launches: over the reference search's weight
+    # steps, arch steps and val frames (phase 11, zeroed just before);
+    # search_ms, search_plain_ms, search_bound_ms, search_max_abs_err: the
+    # band kernel at the search cost (2, 64, 64, 128); search_decode_launches:
+    # the decoded network's KITTI frame (phase 11);
     # parallel_sharded_frame_launches: each rank's over the disparity-sharded
     # bf16 KITTI frames (phase 12a, 0: the sharded head is the plain one);
     # parallel_dp_launches_per_rank: over the 3 data-parallel steps (12b);
     # parallel_sharded_train_launches: each rank's over the disparity-sharded
     # Middlebury steps (12d: 3 fp32 and 8 bf16; 0, as in JAX under a pspec);
     # parallel_nccl_launches: over cli.train --multihost's 3 steps and val
-    # frames (12c).
+    # frames (12c); route_shapes: phase 3's times at the shapes a route takes
+    # that the first design alone took before; kitti_forced_ms: a repitch
+    # route forced on the KITTI volume the in-place route reads (phase 3).
     # library_ms is null for the heads: no one PyTorch call computes them;
     # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel).
+    def shapes_of(route: str) -> dict:
+        return {n: {k: r[k] for k in ("ms", "yardstick_ms", "bound_ms", "max_abs_err")}
+                for n, r in routes.items() if r["route"] == route}
+
+    def repitch_entry(name: str, shape: str, path: str) -> dict:
+        r = routes[shape]
+        return {"name": name, "route": "cuda", "source": SRC_SM90, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
+                "launches": op_launches[name], "path": path,
+                "max_abs_err": max([errs[name]] + [x["max_abs_err"] for x in shapes_of(r["route"]).values()]),
+                "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None, "yardstick_ms": r["yardstick_ms"], "shape": r["shape"],
+                "route_shapes": shapes_of(r["route"]),
+                "kitti_forced_ms": best["c32_repitch" if "f32" not in name else "c32_f32_repitch"],
+                "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches[name],
+                "fp32_frame_launches": fp32_frame_launches[name], **cli_of.get(name, {}), **train_of[name],
+                **par_of[name]}
+
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
          "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": errs["fused_head_sm90"], "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
-         "yardstick_ms": unfused_ms, **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
+         "yardstick_ms": unfused_ms, "route_shapes": shapes_of("sm90"), **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"],
          "search_decode_launches": search["decode_launches"], **par_of["fused_head_sm90"]},
         {"name": "fused_head_sm90_f32", "route": "cuda", "source": SRC_SM90,
@@ -1935,22 +2063,17 @@ def main() -> int:
          "max_abs_err": errs["fused_head_sm90_f32"], "ms": sm90_f32_ms, "plain_ms": head_fp32_plain_ms,
          "bound_ms": head_fp32_bound[0], "bound_by": head_fp32_bound[1], "library_ms": None,
          "yardstick_ms": unfused32_ms, "share_of_bound": head_fp32_bound[0] / sm90_f32_ms,
-         "first_design_ms": head_fp32_ms, "wide_span_300x_err": wide["fused_head_sm90_f32"],
+         "wide_span_300x_err": wide["fused_head_sm90_f32"],
+         "padded_channels_path_launches": padded_launches["fused_head_sm90_f32"],
+         "padded_channels_path_kernel_vs_plain_px": padded_err,
          **cli_of["fused_head_sm90_f32"], **train_of["fused_head_sm90_f32"],
          "fp32_frame_launches": fp32_frame_launches["fused_head_sm90_f32"], "fp32_frame_frames": 4,
          "fp32_kitti_frame_device_ms": fp32_frame_ms, "fp32_kitti_frame_kernel_ms": fp32_head_frame_ms,
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90_f32"],
          **par_of["fused_head_sm90_f32"]},
-        {"name": "fused_head", "route": "cuda", "source": SRC_HEADS, "replaces": "leastereo_tpu/ops/pallas_head.py:96",
-         "launches": first_launches["fused_head"], "launches_per_frame": first_launches["fused_head"] / 1,
-         "path": "fp32 forward, 24-channel matching net (phase 6); the bf16 and fp32 shapes both sm90 gates refuse",
-         "max_abs_err": errs["fused_head"], "path_kernel_vs_plain_px": first_err, "ms": head_ms,
-         "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
-         "yardstick_ms": unfused_ms, **train_of["fused_head"], "fp32_volume_ms": head_fp32_ms,
-         "fp32_volume_plain_ms": head_fp32_plain_ms, "fp32_volume_bound_ms": head_fp32_bound[0],
-         "fp32_volume_bound_by": head_fp32_bound[1], "fp32_frame_launches": fp32_frame_launches["fused_head"],
-         "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head"],
-         **par_of["fused_head"]},
+        repitch_entry("fused_head_sm90_repitch", "w412",
+                      "the op on bf16 volumes TMA cannot read in place (phase 6: w = 412, and a base 4 bytes past 16)"),
+        repitch_entry("fused_head_sm90_f32_repitch", "w414_f32", "the op on an fp32 volume of w = 414 (phase 6)"),
         {"name": "band_soft_argmin", "route": "cuda", "source": SRC_HEADS,
          "replaces": "leastereo_tpu/ops/pallas_softargmin.py:45", "launches": launches["band_soft_argmin"],
          "launches_per_frame": launches["band_soft_argmin"] / 1, "path": "KITTI bf16 confidence forward (phase 4)",

@@ -6,8 +6,8 @@ numpy-seeded inputs (``tests/test_torch_*.py``). Layouts at the public
 boundary follow the JAX package (``LEAStereo.forward`` takes NHWC images and
 returns ``(B, H, W)``); inside, tensors are NCHW / NCDHW so convolutions go to
 cuDNN. The two Pallas TPU kernels are hand-written CUDA kernels in ``csrc/``
-(the fused head in ``fused_head_sm90.cu`` for bf16 volumes and in
-``soft_argmin_heads.cu`` for the rest, the band kernel there too), built with
+(the fused head in ``fused_head_sm90.cu``, the band kernel in
+``soft_argmin_heads.cu``), built with
 ``nvcc`` at first use (``ops/_build.py``). Importing the package registers
 them as the custom ops ``torch.ops.leastereo.conv_soft_argmin`` and
 ``torch.ops.leastereo.band_soft_argmin``, so import it before

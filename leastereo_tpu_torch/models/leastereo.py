@@ -6,8 +6,9 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
 
 * eval, not ``fast_head``, not ``return_entropy``, and a fused-head gate
   admits the shape: the ``last_3`` conv and the soft-argmin run as one CUDA
-  kernel (``ops/fused_head.py``: the sm90 kernel of the volume's type, bf16
-  or fp32, where its gate takes the shape, else the first design);
+  kernel (``ops/fused_head.py``: the sm90 head of the volume's type, bf16
+  or fp32, read in place by TMA or, for rows TMA cannot describe, copied to
+  padded rows first);
 * otherwise the ``last_3`` conv (cuDNN), then ``soft_argmin_fast`` when
   ``fast_head`` is set, else the band kernel (``ops/fused_softargmin.py``).
   ``pallas_head=False`` selects the plain ``soft_argmin`` instead of either
@@ -16,8 +17,8 @@ views, the fused cost-volume stem and the 3-D Matching Net, then the head:
 Both kernels are reached through the custom ops ``torch.ops.leastereo.*``
 (``conv_soft_argmin_fused``, ``soft_argmin_fused``), so ``torch.export``
 traces the model with them in its graph. The routing above reads only
-shapes, dtypes and the config, and so traces; the op itself picks an sm90
-kernel or the first design from the volume it is given.
+shapes, dtypes and the config, and so traces; the op itself picks the
+route from the volume it is given (its width and address).
 
 A refused fused head is logged once per reason and falls to the band kernel;
 a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 569``)
@@ -46,7 +47,7 @@ import logging
 import torch
 import torch.nn as nn
 
-from ..ops.fused_head import conv_soft_argmin_fused, fused_head_gate_reason, fused_head_route
+from ..ops.fused_head import conv_soft_argmin_fused, fused_head_route, fused_head_sm90_gate_reason
 from ..ops.fused_softargmin import soft_argmin_fused
 from ..ops.softargmin import (
     disparity_entropy,
@@ -165,7 +166,7 @@ class LEAStereo(nn.Module):
             _, c, d, _, w = vol.shape
             if fused_head_route(c, d, w, cfg.maxdisp, vol.dtype) is not None:
                 return conv_soft_argmin_fused(vol, kernel, cfg.maxdisp)
-            self._warn_once(f"fused head disabled: {fused_head_gate_reason(c, d, cfg.maxdisp, vol.dtype)}")
+            self._warn_once(f"fused head disabled: {fused_head_sm90_gate_reason(c, d, cfg.maxdisp, vol.dtype)}")
         cost = last_3(vol)[:, 0]  # (B, D, h, w)
         if cfg.fast_head:
             disp = soft_argmin_fast(cost, cfg.maxdisp)

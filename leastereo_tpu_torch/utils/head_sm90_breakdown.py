@@ -44,16 +44,13 @@ _SOFTMIN = "  heads::upsample_softmin_store<TH, TW, THREADS>("
 _TAP_SUM = "    if (owner) {\n      float q[3];"
 _MT_LOOP = "for (int mt = warp; mt < MT; mt += "  # bf16: the contraction's loop over row tiles
 _F32_MT = "if (mt >= MT) break;  // warp-uniform"  # fp32: the same
-_WAIT = "    mbar_wait(smem_u32(&full[s]), (din / stages) & 1);"
-_F32_WAIT = "        mbar_wait(smem_u32(&full[2 * s + hh]), (din / stages) & 1);"
-_LOAD_FIRST = "  if (tid == 0) {\n    for (int s = 0; s < stages && s < D; ++s)"
-_LOAD_NEXT = "    if (tid == 0 && din + stages < D) {"
+_WAIT = "      mbar_wait(smem_u32(&full[s]), parity);"
+_F32_WAIT = "        mbar_wait(smem_u32(&full[2 * s + hh]), parity);"
+_LOAD_FIRST = "  for (int s = 0; s < stages && s < entries; ++s)"
+_LOAD_NEXT = "if (e + stages < entries) load_box("
 _F32_ROWS = "  static constexpr int BH = SR;"
 _F32_PAIR = "constexpr size_t PAIR_LIMIT = 115712;"
-_F32_BOUNDS = (
-    "template <int KS>  // two blocks per SM up to C = 32 (registers capped at 128), as in bf16\n"
-    "__global__ void __launch_bounds__(THREADS, KS <= 2 ? 2 : 1)"
-)
+_F32_BOUNDS = "__launch_bounds__(THREADS, KS <= 2 ? 2 : 1)\nhead_sm90_f32_kernel("
 _L2_PROMOTION = "CU_TENSOR_MAP_L2_PROMOTION_L2_128B"
 _BOX_START = "j0 - 2, i0 - 2, "
 
@@ -73,8 +70,8 @@ _NO_TAP_SUM = (_TAP_SUM, "    if (D < 0) {\n      float q[3];")
 _NO_CONTRACTION = ((_MT_LOOP, "for (int mt = warp; mt < (D < 0 ? MT : 0); mt += "),
                    (_F32_MT, "if (mt >= (D < 0 ? MT : 0)) break;  // warp-uniform"))
 _NO_LOADS = ((_WAIT, ""), (_F32_WAIT, ""),
-             (_LOAD_FIRST, "  if (D < 0) {\n    for (int s = 0; s < stages && s < D; ++s)"),
-             (_LOAD_NEXT, "    if (D < 0) {"))
+             (_LOAD_FIRST, "  for (int s = 0; s < stages && s < (D < 0 ? entries : 0); ++s)"),
+             (_LOAD_NEXT, "if (D < 0) load_box("))
 _LOOP_ONLY = (*_NO_CONTRACTION, _NO_SOFTMIN, _NO_TAP_SUM)
 
 # name -> (the replacements, fp32 only)
@@ -125,7 +122,7 @@ def _time_variant(label: str, name: str, fp32: bool) -> dict:
     lib = ctypes.CDLL(str(_OUT / label / f"{name}.so"))
     p, i = ctypes.c_void_p, ctypes.c_int
     entry = lib.lst_head_sm90_f32_soft_argmin if fp32 else lib.lst_head_sm90_soft_argmin
-    entry.argtypes = [p, p, p, i, i, i, i, i, p]
+    entry.argtypes = [p, p, p, i, i, i, i, i, i, p]
     entry.restype = i
     b, c, d, h, w = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -139,7 +136,7 @@ def _time_variant(label: str, name: str, fp32: bool) -> dict:
         res["stages"] = lib.lst_head_sm90_f32_stages(c, d)
     for label, kern in (("bf16_weights_ms", k32.to(torch.bfloat16).float()), ("fp32_weights_ms", k32)):
         def launch():
-            err = entry(vol.data_ptr(), kern.data_ptr(), out.data_ptr(), b, c, d, h, w, stream)
+            err = entry(vol.data_ptr(), kern.data_ptr(), out.data_ptr(), b, c, d, h, w, w, stream)
             _build.check(err, f"variant {name}")
 
         for _ in range(3):

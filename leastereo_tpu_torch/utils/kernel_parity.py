@@ -11,10 +11,11 @@ shapes (a ``(1, 32, 64, 128, 416)`` pre-head volume, a ``(1, 64, 128, 416)``
 cost, maxdisp 192), on three kinds of input (:func:`head_inputs`), within
 ``ATOL_PX`` (2e-3 px, the JAX package's own kernel tolerance):
 
-* ``head_sm90_kernel`` on a bf16 volume, ``head_sm90_f32_kernel`` on an
-  fp32 volume and the first fused design ``head_kernel`` on both
-  (:func:`head_checks`; checks of kernel ``fused_head_sm90``,
-  ``fused_head_sm90_f32`` and ``fused_head``);
+* each fused head route (:func:`head_checks`): ``head_sm90_kernel`` on a
+  bf16 volume and ``head_sm90_f32_kernel`` on an fp32 volume, read in place
+  (kernel ``fused_head_sm90``, ``fused_head_sm90_f32``), and the same kernels
+  through the repitch routes on the same volumes placed 4 bytes past a
+  16-byte boundary (``fused_head_sm90_repitch``, ``fused_head_sm90_f32_repitch``);
 * ``band_kernel`` on an fp32 cost (:func:`band_checks`; kernel
   ``band_soft_argmin``);
 * the in-model fused path (:func:`in_model_checks`): ``best_sceneflow_model``
@@ -49,11 +50,14 @@ __all__ = [
     "band_cost",
     "calibrate_head",
     "head_checks",
+    "HEAD_ROUTES",
     "head_inputs",
     "in_model_checks",
     "main",
+    "offset_copy",
     "peaky_cost",
     "report",
+    "ROUTE_SHAPES",
     "run",
 ]
 
@@ -105,28 +109,54 @@ def _max_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (got.double() - ref).abs().max().item()
 
 
-def head_checks(gen: torch.Generator, b: int, c: int, d: int, h: int, w: int, maxdisp: int, dev) -> list[dict]:
-    """Each fused head kernel against the float64 plain version, on each kind
-    of input: the sm90 heads on the volume type each takes, the first
-    design on fp32 and bf16 volumes."""
-    from ..ops.fused_head import (
-        conv_soft_argmin_reference,
-        conv_soft_argmin_simt,
-        conv_soft_argmin_sm90,
-        conv_soft_argmin_sm90_f32,
-    )
+def offset_copy(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """A contiguous copy of ``x`` whose data starts ``nbytes`` (a multiple of
+    its element size) past the start of its buffer."""
+    k = nbytes // x.element_size()
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    out = buf[k:].view(x.shape)
+    out.copy_(x)
+    return out
 
-    heads = (("fused_head_sm90", conv_soft_argmin_sm90, torch.bfloat16),
-             ("fused_head_sm90_f32", conv_soft_argmin_sm90_f32, torch.float32),
-             ("fused_head", conv_soft_argmin_simt, torch.float32),
-             ("fused_head", conv_soft_argmin_simt, torch.bfloat16))
+
+# Volumes no sm90 route took before channel padding, channel groups and the
+# repitch routes, at KITTI size: name -> ((B, C, D, h, w), volume dtype name,
+# bytes past a 16-byte boundary). C = 24 and 12 pad to 32 and 16 (12: the
+# search's widths), 80 takes 32-channel groups; w = 412 (bf16) and 414 (fp32)
+# are not whole 16-byte rows, and "unaligned" starts off a 16-byte boundary.
+ROUTE_SHAPES = {
+    "c24": ((1, 24, 64, 128, 416), "bfloat16", 0),
+    "c12_search_widths": ((1, 12, 64, 128, 416), "bfloat16", 0),
+    "c80_groups": ((1, 80, 64, 128, 416), "bfloat16", 0),
+    "w412": ((1, 32, 64, 128, 412), "bfloat16", 0),
+    "w414_f32": ((1, 32, 64, 128, 414), "float32", 0),
+    "unaligned": ((1, 24, 64, 128, 416), "bfloat16", 4),
+}
+
+# Each fused head route's check: (kernel name, route, volume dtype, bytes
+# past a 16-byte boundary).
+HEAD_ROUTES = (("fused_head_sm90", "sm90", torch.bfloat16, 0),
+               ("fused_head_sm90_f32", "sm90_f32", torch.float32, 0),
+               ("fused_head_sm90_repitch", "sm90_repitch", torch.bfloat16, 4),
+               ("fused_head_sm90_f32_repitch", "sm90_f32_repitch", torch.float32, 4))
+
+
+def head_checks(gen: torch.Generator, b: int, c: int, d: int, h: int, w: int, maxdisp: int, dev) -> list[dict]:
+    """Each fused head route against the float64 plain version, on each kind
+    of input: the in-place routes on the volume type each takes, the
+    repitch routes on the same volumes 4 bytes past a 16-byte boundary."""
+    from ..ops.fused_head import ROUTE_WRAPPERS, conv_soft_argmin_reference
+
     out = []
     for kind in KINDS:
         vol32, kern = head_inputs(gen, kind, b, c, d, h, w, dev)
-        for name, fn, dt in heads:
-            vol = vol32.to(dt)
+        for name, route, dt, offset in HEAD_ROUTES:
+            vol = offset_copy(vol32.to(dt), offset)
+            fn = ROUTE_WRAPPERS[route]
             err = _max_err(fn(vol, kern, maxdisp), conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp))
-            out.append(_check(f"{name}_{str(dt)[6:]}_{kind}_vs_f64", name, kind, dt, vol.shape, err))
+            check = _check(f"{name}_{kind}_vs_f64", name, kind, dt, vol.shape, err)
+            check["route"], check["offset_bytes"] = route, offset
+            out.append(check)
     return out
 
 

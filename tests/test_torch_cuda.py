@@ -4,7 +4,9 @@ Each kernel (``leastereo_tpu_torch/csrc/*.cu``) is built from source on
 first use and held against its plain PyTorch version evaluated in float64 on
 the same inputs, at small ragged shapes and at the KITTI head shape (the
 fp32 sm90 head also on peaky, wide and diffuse inputs, C in {16, 32, 64},
-both of its ring layouts); the predict driver launches its dtype's head
+both of its ring layouts; every route at padded and grouped channel counts,
+widths TMA cannot read in place and a base 4 bytes past a 16-byte boundary);
+``cli.predict`` launches its dtype's head
 (bf16: the sm90 head; fp32: the fp32 sm90 head) once per frame, the train driver
 the band kernel once per step; both heads pass ``torch.library.opcheck`` as
 custom ops on the card, a loaded KITTI ``.pt2`` launches the sm90 head
@@ -26,12 +28,15 @@ import torch
 from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
 from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_cuda,
+    ROUTE_WRAPPERS,
     conv_soft_argmin_reference,
-    conv_soft_argmin_simt,
     conv_soft_argmin_sm90,
+    conv_soft_argmin_sm90_repitch,
     conv_soft_argmin_sm90_f32,
+    conv_soft_argmin_sm90_f32_repitch,
     fused_head_route,
 )
+from leastereo_tpu_torch.utils.kernel_parity import offset_copy
 from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
 from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
@@ -108,27 +113,11 @@ def test_fused_head(dev, shape, dtype):
     vol, kern = _head_case(dev, shape, dtype)
     route = fused_head_route(c, d, w, 3 * d, dtype)
     assert route == ("sm90" if dtype == torch.bfloat16 else "sm90_f32")
-    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32)
-    n = [f.launches for f in counters]
+    n = {r: f.launches for r, f in ROUTE_WRAPPERS.items()}
     got = conv_soft_argmin_cuda(vol, kern, 3 * d)
     torch.cuda.synchronize()
-    moved = tuple(f.launches - k for f, k in zip(counters, n))
-    assert moved == ((0, 1, 0) if route == "sm90" else (0, 0, 1))
+    assert {r: f.launches - n[r] for r, f in ROUTE_WRAPPERS.items()} == {r: int(r == route) for r in ROUTE_WRAPPERS}
     # bf16 volumes: the plain version sees the same bf16 values, upcast.
-    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
-    assert (got.double() - ref).abs().max().item() < TOL_PX
-
-
-@pytest.mark.parametrize("shape", [(1, 8, 16, 20, 32), (1, 8, 16, 24, 24)])
-def test_fused_head_refused_by_sm90_runs_first_design(dev, shape):
-    """bf16 with w % 8 != 0 or C % 16 != 0: the first design's kernel."""
-    b, d, h, w, c = shape
-    vol, kern = _head_case(dev, shape, torch.bfloat16)
-    assert fused_head_route(c, d, w, 3 * d, torch.bfloat16) == "simt"
-    n = conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches
-    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
-    torch.cuda.synchronize()
-    assert (conv_soft_argmin_simt.launches, conv_soft_argmin_sm90.launches) == (n[0] + 1, n[1])
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
     assert (got.double() - ref).abs().max().item() < TOL_PX
 
@@ -169,38 +158,60 @@ def test_fused_head_sm90_f32(dev, shape, kind):
     vol, kern = _head_kind(dev, shape, kind)
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
     assert fused_head_route(c, d, w, 3 * d, torch.float32) == "sm90_f32"
-    counters = (conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90, conv_soft_argmin_simt)
+    counters = (conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch,
+                conv_soft_argmin_sm90_f32_repitch)
     n = [f.launches for f in counters]
     got = conv_soft_argmin_cuda(vol, kern, 3 * d)
     torch.cuda.synchronize()
-    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0, 0]
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
     assert (got.double() - ref).abs().max().item() < TOL_PX
 
 
-def test_fused_head_refused_by_fp32_sm90_runs_first_design(dev):
-    """fp32 with w % 4 != 0: the first design's kernel."""
-    shape = (1, 8, 16, 22, 32)
-    b, d, h, w, c = shape
-    vol, kern = _head_case(dev, shape, torch.float32)
-    assert fused_head_route(c, d, w, 3 * d, torch.float32) == "simt"
-    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90)
-    n = [f.launches for f in counters]
-    got = conv_soft_argmin_cuda(vol, kern, 3 * d)
-    torch.cuda.synchronize()
-    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0]
-    ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
-    assert (got.double() - ref).abs().max().item() < TOL_PX
+# Shapes no sm90 route took before channel padding, channel groups and the
+# repitch routes: C = 8 (fp32: a second box wholly past C), 12 and 24
+# (padded to 16 and 32), 40 (to 48), 80 (three 32-channel groups, the last
+# one's upper fp32 box wholly past C); w = 416 (in place), 412 (bf16:
+# repitched, w % 8 = 4; fp32: in place), 413 and 414 (repitched both); a
+# small h and D.
+ROUTE_CHANNELS = (8, 12, 24, 40, 80)
+ROUTE_WIDTHS = (416, 412, 413, 414)
+
+
+@pytest.mark.parametrize("offset", [0, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("w", ROUTE_WIDTHS)
+@pytest.mark.parametrize("c", ROUTE_CHANNELS)
+def test_fused_head_routes(dev, c, w, b, dtype, offset):
+    """Every route at padded and grouped C, widths TMA cannot read in place,
+    and a base ``offset`` bytes past a 16-byte boundary: peaky, wide and diffuse
+    inputs within 2e-3 px of float64, one launch of the route's counter and
+    none of the others each."""
+    d, h = 16, 9
+    route = fused_head_route(c, d, w, 3 * d, dtype, aligned=offset == 0)
+    in_place = w * dtype.itemsize % 16 == 0 and offset == 0
+    assert route == ("sm90" if dtype == torch.bfloat16 else "sm90_f32") + ("" if in_place else "_repitch")
+    for seed, kind in enumerate(("peaky", "wide", "diffuse")):
+        vol, kern = _head_kind(dev, (b, d, h, w, c), kind, seed=seed)
+        vol = offset_copy(vol.to(dtype), offset)
+        assert vol.data_ptr() % 16 == offset
+        n = {r: f.launches for r, f in ROUTE_WRAPPERS.items()}
+        got = conv_soft_argmin_cuda(vol, kern, 3 * d)
+        torch.cuda.synchronize()
+        assert {r: f.launches - n[r] for r, f in ROUTE_WRAPPERS.items()} == {r: int(r == route) for r in ROUTE_WRAPPERS}
+        ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * d)
+        assert (got.double() - ref).abs().max().item() < TOL_PX, kind
 
 
 @pytest.mark.parametrize("kern_dtype", [torch.float32, torch.bfloat16])
 def test_fused_head_fp32_kernels_agree(dev, kern_dtype):
-    """On one fp32 volume, the fp32 sm90 kernel and the first design; bf16
-    weights (tf32 values) take the fp32 kernel's two-product contraction."""
+    """On one fp32 volume, the fp32 in-place and repitch routes; bf16 weights
+    (tf32 values) take the fp32 contraction's two-product form."""
     shape = (1, 16, 24, 48, 32)
     vol, kern = _head_case(dev, shape, torch.float32, kern_dtype)
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * shape[1])
-    for fn in (conv_soft_argmin_sm90_f32, conv_soft_argmin_simt):
+    for fn in (conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_f32_repitch):
         n = fn.launches
         got = fn(vol, kern, 3 * shape[1])
         torch.cuda.synchronize()
@@ -210,12 +221,12 @@ def test_fused_head_fp32_kernels_agree(dev, kern_dtype):
 
 @pytest.mark.parametrize("kern_dtype", [torch.float32, torch.bfloat16])
 def test_fused_head_both_kernels_agree(dev, kern_dtype):
-    """On one bf16 volume, the sm90 kernel and the first design; bf16
-    weights take the sm90 kernel's one-part contraction."""
+    """On one bf16 volume, the bf16 in-place and repitch routes; bf16 weights
+    take the one-part contraction."""
     shape = (1, 16, 24, 48, 32)
     vol, kern = _head_case(dev, shape, torch.bfloat16, kern_dtype)
     ref = conv_soft_argmin_reference(vol.double(), kern.double(), 3 * shape[1])
-    for fn in (conv_soft_argmin_sm90, conv_soft_argmin_simt):
+    for fn in (conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch):
         n = fn.launches
         got = fn(vol, kern, 3 * shape[1])
         torch.cuda.synchronize()
@@ -240,6 +251,11 @@ def test_wrappers_raise_instead_of_falling_back(dev):
         conv_soft_argmin_sm90(vol, kern, 24)
     with pytest.raises(ValueError, match="float32 volume"):
         conv_soft_argmin_sm90_f32(vol.bfloat16(), kern, 24)
+    # An in-place route takes neither rows of partial 16-byte lines nor an unaligned base.
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv_soft_argmin_sm90(torch.zeros(1, 16, 8, 16, 20, dtype=torch.bfloat16, device=dev), kern, 24)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        conv_soft_argmin_sm90_f32(offset_copy(vol, 4), kern, 24)
 
 
 def _kitti_tree(root, names, h=96, w=192):
@@ -270,7 +286,8 @@ def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
 
     names = ["000000_10.png", "000001_10.png"]
     _kitti_tree(tmp_path, names)
-    counters = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_simt, soft_argmin_cuda)
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_repitch,
+                conv_soft_argmin_sm90_f32_repitch, soft_argmin_cuda)
     n = [f.launches for f in counters]
     argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
             "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
@@ -285,15 +302,15 @@ def test_predict_driver_launches_its_head(dev, tmp_path, dtype, kernel):
 def test_train_driver_launches_band_kernel_per_step(dev, tmp_path):
     """``cli.train`` on the card, bf16: two epochs of one step each on a
     synthetic 96x192 tree; the band kernel launches once per train step, the
-    sm90 head once per val frame, the fp32 sm90 head and the first fused
-    design never."""
+    sm90 head once per val frame, the other head routes never."""
     import json
 
     from leastereo_tpu_torch.cli import train
 
     names = ["000000_10.png", "000001_10.png"]
     _kitti_tree(tmp_path, names)
-    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch,
+                conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_f32_repitch)
     n = [f.launches for f in counters]
     argv = ["--dataset", "kitti15_part", "--data_root", str(tmp_path / "data"), "--listset", "syn",
             "--lists_dir", str(tmp_path / "lists"), "--crop_height", "96", "--crop_width", "192",
@@ -301,7 +318,7 @@ def test_train_driver_launches_band_kernel_per_step(dev, tmp_path):
             "--run_root", str(tmp_path / "run"), "--experiment", "card"]
     assert train.main(argv) == 0
     steps, val_frames = 2, 2 * len(names)
-    assert [f.launches - k for f, k in zip(counters, n)] == [steps, val_frames, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [steps, val_frames, 0, 0, 0]
     exp = tmp_path / "run" / "kitti15_part-train" / "card"
     lines = [json.loads(line) for line in (exp / "logs" / "metrics.jsonl").read_text().splitlines()]
     assert np.isfinite([line["loss"] for line in lines if "loss" in line]).all()
@@ -313,7 +330,8 @@ def test_model_raises_on_refused_cost(dev):
     kernel, which refuses the CUDA cost; the model raises, launching nothing."""
     model = best_sceneflow_model(LEAStereoConfig(maxdisp=50, compute_dtype="float32"), device=dev)
     x = torch.from_numpy(np.random.RandomState(0).randn(1, 48, 96, 3).astype(np.float32)).to(dev)
-    counters = (soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90_repitch, conv_soft_argmin_sm90,
+                conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_f32_repitch)
     n = [f.launches for f in counters]
     with torch.no_grad(), pytest.raises(ValueError, match="band kernel refuses"):
         model(x, x)
@@ -356,11 +374,12 @@ def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
     rng = np.random.RandomState(0)
     frames = [tuple(torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
               for _ in range(2)]
-    counters = (conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32, soft_argmin_cuda)
+    counters = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch, conv_soft_argmin_sm90_f32,
+                conv_soft_argmin_sm90_f32_repitch, soft_argmin_cuda)
     n = [f.launches for f in counters]
     with torch.inference_mode():
         got = [prog(left, right) for left, right in frames]
-    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0, 0, 0]
     with torch.inference_mode():
         for g, (left, right) in zip(got, frames):
             assert g.shape == (1, 384, 1248)
@@ -386,12 +405,13 @@ def test_search_steps_launch_band_kernel_once(dev):
     from leastereo_tpu_torch.search import arch_step, weight_step
 
     model, opt_w, opt_a, batch = _search_setup(dev, remat=True)
-    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_simt, conv_soft_argmin_sm90_f32)
+    counters = (soft_argmin_cuda, conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch,
+                conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_f32_repitch)
     n = [f.launches for f in counters]
     m = weight_step(model, opt_w, batch, 48, 0.025)
-    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [1, 0, 0, 0, 0]
     arch_step(model, opt_a, batch, 48)
-    assert [f.launches - k for f, k in zip(counters, n)] == [2, 0, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [2, 0, 0, 0, 0]
     assert np.isfinite(m["loss"])
 
 

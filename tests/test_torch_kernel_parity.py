@@ -48,10 +48,14 @@ def test_kernel_parity_refuses_without_a_card(monkeypatch, tmp_path):
 
 
 def test_parity_report_of_plain_versions(checks):
-    kernels = ("fused_head_sm90", "fused_head_sm90_f32", "fused_head", "band_soft_argmin", "in_model_fused")
+    kernels = ("fused_head_sm90", "fused_head_sm90_f32", "fused_head_sm90_repitch", "fused_head_sm90_f32_repitch",
+               "band_soft_argmin", "in_model_fused")
     assert {c["kernel"] for c in checks} == set(kernels)
     assert {c["input"] for c in checks} == set(kp.KINDS)
-    assert len(checks) == 3 * (4 + 1 + 1)  # per kind: 4 head checks, the band kernel, the model
+    assert len(checks) == 3 * (4 + 1 + 1)  # per kind: a check a head route, the band kernel, the model
+    # The repitch routes' volumes start 4 bytes past a 16-byte boundary.
+    heads = [c for c in checks if c["kernel"].startswith("fused_head")]
+    assert {(c["route"], c["offset_bytes"]) for c in heads} == {(r, o) for _, r, _, o in kp.HEAD_ROUTES}
     doc = json.loads(json.dumps(kp.report(checks, "cpu", dict(b=B, c=C, d=D, h=H, w=W, maxdisp=MAXDISP))))
     assert doc["device"] == "cpu" and doc["shape"]["maxdisp"] == MAXDISP and doc["all_ok"] is True
     assert len(doc["kernels"]) == len(checks)

@@ -24,10 +24,10 @@ from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_cuda,
     conv_soft_argmin_fused,
     conv_soft_argmin_reference,
-    conv_soft_argmin_simt,
     conv_soft_argmin_sm90,
+    conv_soft_argmin_sm90_repitch,
     conv_soft_argmin_sm90_f32,
-    fused_head_gate_reason,
+    conv_soft_argmin_sm90_f32_repitch,
     fused_head_route,
     fused_head_sm90_gate_reason,
 )
@@ -116,10 +116,12 @@ def test_cpu_wrappers_take_plain_versions():
     x, k = _head_inputs(b, d, h, w, c, seed=3)
     vol, kern = _to_port(x, k)
     cost = torch.from_numpy(_peaky_cost(b, d, h, w, seed=3))
-    counters = (conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, soft_argmin_cuda)
+    heads = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_repitch,
+             conv_soft_argmin_sm90_f32_repitch)
+    counters = (*heads, soft_argmin_cuda)
     before = [f.launches for f in counters]
     ref = conv_soft_argmin_reference(vol, kern, 3 * d)
-    for fn in (conv_soft_argmin_cuda, conv_soft_argmin_simt, conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32):
+    for fn in (conv_soft_argmin_cuda, *heads):
         assert torch.equal(fn(vol, kern, 3 * d), ref)
         # A bf16 volume the sm90 gate admits takes the plain version too.
         assert torch.equal(fn(vol.bfloat16(), kern, 3 * d), conv_soft_argmin_reference(vol.bfloat16(), kern, 3 * d))
@@ -150,40 +152,36 @@ def test_autograd_functions_match_plain_gradients():
 
 def test_gates():
     # KITTI, maxdisp 192: D = 64, C = 32, bf16 and fp32.
-    assert fused_head_gate_reason(32, 64, 192, torch.bfloat16) is None
-    assert fused_head_gate_reason(32, 64, 192, torch.float32) is None
-    assert "maxdisp" in fused_head_gate_reason(32, 64, 190, torch.bfloat16)
-    assert "dtype" in fused_head_gate_reason(32, 64, 192, torch.float16)
-    # Middlebury, maxdisp 408: D = 136 exceeds the fused head's shared memory
-    # but fits the band kernel's tile.
-    assert "shared memory" in fused_head_gate_reason(32, 136, 408, torch.bfloat16)
+    assert fused_head_sm90_gate_reason(32, 64, 192, torch.bfloat16) is None
+    assert fused_head_sm90_gate_reason(32, 64, 192, torch.float32) is None
+    assert "maxdisp" in fused_head_sm90_gate_reason(32, 64, 190, torch.bfloat16)
+    assert "dtype" in fused_head_sm90_gate_reason(32, 64, 192, torch.float16)
+    # Middlebury, maxdisp 408: D = 136 fits the fused head's shared memory
+    # and the band kernel's tile; D = 300 only the band kernel's.
+    assert fused_head_sm90_gate_reason(32, 136, 408, torch.bfloat16) is None
+    assert "shared memory" in fused_head_sm90_gate_reason(32, 300, 900, torch.bfloat16)
+    assert band_gate_reason(300, 900) is None
     assert band_gate_reason(136, 408) is None
     assert band_gate_reason(170, 510) is None
     # The band kernel's 1 x 32 tile: 408 B a plane, D <= 569.
     assert band_gate_reason(569, 1707) is None
     assert "shared memory" in band_gate_reason(570, 1710)
     assert "maxdisp" in band_gate_reason(64, 191)
-    # The sm90 kernels: bf16 or fp32, C a multiple of 16 up to 64, w a
-    # multiple of 8 (bf16; fp32: of 4, test_sm90_f32_gate_and_route).
-    assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.bfloat16) is None
-    assert fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float32) is None
-    assert "dtype" in fused_head_sm90_gate_reason(32, 64, 416, 192, torch.float16)
-    assert "C=24" in fused_head_sm90_gate_reason(24, 64, 416, 192, torch.bfloat16)
-    assert "C=80" in fused_head_sm90_gate_reason(80, 8, 416, 24, torch.bfloat16)
-    assert "w=412" in fused_head_sm90_gate_reason(32, 64, 412, 192, torch.bfloat16)
-    assert "maxdisp" in fused_head_sm90_gate_reason(32, 64, 416, 190, torch.bfloat16)
-    # Its smaller tile takes Middlebury's D = 136 at bf16, which the first design refuses.
-    assert fused_head_sm90_gate_reason(32, 136, 504, 408, torch.bfloat16) is None
-    assert "shared memory" in fused_head_sm90_gate_reason(32, 300, 504, 900, torch.bfloat16)
-    # Routing: KITTI bf16 -> sm90, fp32 -> the fp32 sm90 kernel; the shapes
-    # both refuse -> the first design.
+    # The sm90 gate: bf16 or fp32, any C (padded to a multiple of 16 up to
+    # 64, 32-channel groups above), any w (the route follows it).
+    assert fused_head_sm90_gate_reason(24, 64, 192, torch.bfloat16) is None
+    assert fused_head_sm90_gate_reason(80, 8, 24, torch.bfloat16) is None
+    assert "maxdisp" in fused_head_sm90_gate_reason(32, 64, 190, torch.bfloat16)
+    # Routing: KITTI bf16 -> sm90, fp32 -> the fp32 sm90 kernel, both by TMA;
+    # C = 24 in place with padded channels; w = 412 bf16 (not a multiple of
+    # 8) copied to rows of whole 16-byte lines first, as is an unaligned base.
     assert fused_head_route(32, 64, 416, 192, torch.bfloat16) == "sm90"
     assert fused_head_route(32, 64, 416, 192, torch.float32) == "sm90_f32"
-    assert fused_head_route(24, 64, 416, 192, torch.bfloat16) == "simt"
-    assert fused_head_route(32, 64, 412, 192, torch.bfloat16) == "simt"
+    assert fused_head_route(24, 64, 416, 192, torch.bfloat16) == "sm90"
+    assert fused_head_route(32, 64, 412, 192, torch.bfloat16) == "sm90_repitch"
+    assert fused_head_route(32, 64, 416, 192, torch.bfloat16, aligned=False) == "sm90_repitch"
     assert fused_head_route(32, 136, 504, 408, torch.bfloat16) == "sm90"
-    # Middlebury fp32: the first design refuses it, the fp32 kernel's
-    # three-stage ring fits.
+    # Middlebury fp32: the fp32 kernel's two-stage ring fits.
     assert fused_head_route(32, 136, 504, 408, torch.float32) == "sm90_f32"
     assert fused_head_route(32, 64, 416, 190, torch.bfloat16) is None
 
@@ -241,11 +239,17 @@ def _sm90_products(vol: torch.Tensor, kern: torch.Tensor) -> list:
 def _sm90_cost_tiles(vol: torch.Tensor, kern: torch.Tensor) -> dict:
     """The sm90 kernel's cost tiles [D][TH+2][TW+2], in plain fp32 torch: per
     block, P[voxel, tap] = sum of the products of :func:`_sm90_products` over
-    channels (the tensor-core contraction), then at each tile site the 9
+    channels (the tensor-core contraction), accumulated ring entry by ring
+    entry (the channels zero-padded to a whole number of entries of
+    ``_build.head_sm90_entry_channels(C)``), then at each tile site the 9
     (kh, kw) taps of each kd, summed at its clamped in-frame site, added into
     cost plane d_in - kd + 1."""
     th, tw, sr, sw = SM90_TH, SM90_TW, SM90_TH + 4, SM90_TW + 4
     b, c, d, h, w = vol.shape
+    entry = _build.head_sm90_entry_channels(c)
+    cp = -(-c // entry) * entry
+    vol = F.pad(vol, (0, 0, 0, 0, 0, 0, 0, cp - c))  # padded channels read as zero
+    kern = F.pad(kern, (0, 0, 0, 0, 0, 0, 0, cp - c))  # and have zero weights
     pad = (8, 32, 2, sr)  # zero fill: what TMA reads outside the frame
     products = [(F.pad(v, pad), part) for v, part in _sm90_products(vol, kern)]
     tiles = {}
@@ -254,7 +258,10 @@ def _sm90_cost_tiles(vol: torch.Tensor, kern: torch.Tensor) -> dict:
             for j0 in range(-SM90_SHIFT, w, tw):
                 rows = slice(i0 - 2 + pad[2], i0 - 2 + pad[2] + sr)
                 cols = slice(j0 - 2 + pad[0], j0 - 2 + pad[0] + sw)
-                p = sum(torch.einsum("cdyx,ct->dtyx", v[bi, :, :, rows, cols], part) for v, part in products)
+                p = 0
+                for e in range(0, cp, entry):  # P += each entry's products
+                    p = p + sum(torch.einsum("cdyx,ct->dtyx", v[bi, e : e + entry, :, rows, cols], part[e : e + entry])
+                                for v, part in products)
                 p = p.reshape(d, 27, sr * sw)
                 gi = (i0 - 1 + torch.arange(th + 2)).clamp(0, h - 1) - (i0 - 2)
                 gj = (j0 - 1 + torch.arange(tw + 2)).clamp(0, w - 1) - (j0 - 2)
@@ -311,6 +318,27 @@ def test_sm90_f32_arithmetic_matches_pallas(shape):
     np.testing.assert_allclose(got, ref, atol=2e-3)
 
 
+# (b, d, h, w, c, g): channels the sm90 heads pad (24 -> 32 and 12 -> 16) or
+# group (80: two 32-channel entries and a 16-channel one padded to 32); g
+# packs them for the JAX kernel (g * C a multiple of 128).
+ENTRY_SHAPES = [(1, 16, 16, 24, 24, 16), (1, 32, 16, 16, 12, 32), (1, 8, 16, 24, 80, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", ENTRY_SHAPES)
+def test_sm90_padded_and_grouped_arithmetic_matches_pallas(shape, dtype):
+    """The decomposition at padded and grouped C (zero channels, P summed
+    entry by entry), for each volume type's contraction, against the JAX
+    kernel on the same values."""
+    b, d, h, w, c, g = shape
+    x, k = _head_inputs(b, d, h, w, c, seed=11)
+    x = torch.from_numpy(x).to(dtype).float().numpy()
+    ref = np.asarray(conv_soft_argmin_pallas(pack(jnp.asarray(x), g).data, jnp.asarray(k), g, c, 3 * d, True))
+    vol, kern = _to_port(x, k)
+    got = _sm90_replay(vol.to(dtype), kern, 3 * d).numpy()
+    np.testing.assert_allclose(got, ref, atol=2e-3)
+
+
 def test_weight_split_keeps_fp32_weights():
     rng = np.random.RandomState(6)
     w = torch.from_numpy((rng.randn(4096) * np.exp(rng.uniform(-8, 4, 4096))).astype(np.float32))
@@ -349,9 +377,9 @@ F32_GATE_CASES = {
     "finetune_val_192": ((32, 64, 192, 192), 1, 30736 + 26352 + 46080, "sm90_f32", None),
     "export_96x192": ((32, 16, 64, 48), 2, 2 * 30736 + 26352 + 11520, "sm90_f32", None),
     "middlebury_d136": ((32, 136, 504, 408), 2, 2 * 30736 + 26352 + 97920, "sm90_f32", None),
-    "w_not_multiple_of_4": ((32, 64, 414, 192), 1, 30736 + 26352 + 46080, "simt", "w=414 is not a multiple of 4"),
+    "w_not_multiple_of_4": ((32, 64, 414, 192), 1, 30736 + 26352 + 46080, "sm90_f32_repitch", None),
     "c16": ((16, 64, 416, 192), 2, 2 * 15376 + 26352 + 46080, "sm90_f32", None),
-    "c24": ((24, 64, 416, 192), 1, None, "simt", "C=24"),
+    "c24": ((24, 64, 416, 192), 1, 30736 + 26352 + 46080, "sm90_f32", None),
     "c64": ((64, 64, 416, 192), 2, 2 * 61456 + 26352 + 46080, "sm90_f32", None),
     "c64_d136": ((64, 136, 504, 408), 1, 61456 + 26352 + 97920, "sm90_f32", None),
     "c32_d569": ((32, 569, 504, 1707), 0, 30736 + 26352 + 409680, None, "shared memory"),
@@ -367,12 +395,12 @@ def test_sm90_f32_gate_and_route(case):
         assert (smem <= _build.SMEM_LIMIT) == (stages >= 1)
         # Two blocks an SM exactly where the layout fits in half an SM.
         assert (smem <= _build.SMEM_PAIR_LIMIT) == (c <= 32 and d <= 64)
-    reason = fused_head_sm90_gate_reason(c, d, w, maxdisp, torch.float32)
+    reason = fused_head_sm90_gate_reason(c, d, maxdisp, torch.float32)
     assert (reason is None) == (refusal is None), reason
     if refusal is not None:
         assert refusal in reason
     assert fused_head_route(c, d, w, maxdisp, torch.float32) == route
-    # The bf16 kernel's gate and layout are its own (w % 8, two bf16 stages).
+    # The bf16 kernel's layout is its own (two bf16 stages).
     assert _build.head_sm90_smem_bytes(32, 64) == 2 * (2 * 32 * 312 + 8) + 26352 + 46080
 
 
@@ -414,7 +442,7 @@ def test_sm90_f32_split_numerics_hold_fp32(kind):
 
 # Geometry of the shared stage (csrc/heads_common.cuh) in each kernel that
 # runs it: (tile rows, tile cols, threads, column shift of the first tile).
-STAGE_GEOMETRY = {"band": (1, 32, 96, 0), "head": (8, 32, 512, 0), "sm90": (SM90_TH, SM90_TW, 256, SM90_SHIFT)}
+STAGE_GEOMETRY = {"band": (1, 32, 96, 0), "sm90": (SM90_TH, SM90_TW, 256, SM90_SHIFT)}
 # (shape, cost scale): the band shapes, a wide-span cost and D = 13.
 STAGE_CASES = [(s, 1.0) for s in BAND_SHAPES] + [((1, 8, 16, 24), 300.0), ((1, 13, 16, 24), 1.0)]
 

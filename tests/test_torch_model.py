@@ -117,7 +117,7 @@ def test_explicit_volume_stem_matches_jax(setup):
 
 
 def test_refused_heads_route_to_band_kernel_wrapper(setup, monkeypatch, caplog):
-    """With both gates refusing, the model still calls the band kernel's
+    """With the fused head's gate refusing, the model still calls the band kernel's
     wrapper (which raises for a CUDA cost) and never the plain soft-argmin
     itself; the fused-head refusal is logged once."""
     import leastereo_tpu_torch.models.leastereo as lst
@@ -146,7 +146,7 @@ def test_refused_heads_route_to_band_kernel_wrapper(setup, monkeypatch, caplog):
         port(left, right)
     assert calls == [(1, MAXDISP // 3, H // 3, W // 3)] * 2
     assert [r.getMessage() for r in caplog.records if "fused head disabled" in r.getMessage()] == [
-        "fused head disabled: " + lst.fused_head_gate_reason(32, MAXDISP // 3, MAXDISP, torch.float32)
+        "fused head disabled: " + lst.fused_head_sm90_gate_reason(32, MAXDISP // 3, MAXDISP, torch.float32)
     ]
     assert torch.allclose(got, ref, atol=1e-4)
 

@@ -20,14 +20,16 @@ from leastereo_tpu_torch.ops import _build
 from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_fused,
     conv_soft_argmin_reference,
-    conv_soft_argmin_simt,
     conv_soft_argmin_sm90,
+    conv_soft_argmin_sm90_repitch,
     conv_soft_argmin_sm90_f32,
+    conv_soft_argmin_sm90_f32_repitch,
 )
 from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
 from leastereo_tpu_torch.ops.softargmin import soft_argmin
 
-COUNTERS = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_simt, soft_argmin_cuda)
+COUNTERS = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_repitch,
+            conv_soft_argmin_sm90_f32_repitch, soft_argmin_cuda)
 
 
 def _head_inputs(dtype, seed=0):
