@@ -54,11 +54,16 @@ caught, so any failure exits non-zero):
    and given as ``--checkpoint``, writing into a temporary directory:
    evaluate on the 4 ``train`` frames by default (sm90 head), with
    ``--confidence`` (band kernel) and with ``--dtype float32`` (the fp32
-   sm90 head), then predict on the ``test`` frame. Each run's
+   sm90 head), then predict on the ``test`` frame, then evaluate
+   ``--full_frame`` under the fine-tune crop 288x576 (each 324x576 frame
+   padded whole to 336x576, ``BEST_SCENEFLOW``'s multiple of 24). Each run's
    outputs, metrics and launch counts (zeroed just before, read just after:
    one launch of its head per frame, none of the others) are checked, and
-   frame 0 of the default run is held against phase 4's model called
-   directly. Prints each run's per-frame load, ``run_frame`` and save times.
+   frame 0 of the default and the ``--full_frame`` run is held against
+   phase 4's model called directly on the same padded input; the sm90 head
+   at the ``--full_frame`` run's volume, (1, 32, 64, 112, 192) bf16, is held
+   against its plain version in float64 and timed. Prints each run's
+   per-frame load, ``run_frame`` and save times.
 9. export: ``python -m leastereo_tpu_torch.cli.export`` of phase 4's weights
    at 384x1248 (bf16) and of phase 6's at 96x192 (fp32, maxdisp 48), each
    passing its round-trip check; each ``.pt2`` loaded here and run with the
@@ -217,7 +222,14 @@ CLI_RUNS = (
     ("evaluate --confidence", "evaluate", "train", ["--confidence"], "band_soft_argmin"),
     ("evaluate --dtype float32", "evaluate", "train", ["--dtype", "float32"], "fused_head_sm90_f32"),
     ("predict", "predict", "test", [], "fused_head_sm90"),
+    # The 324x576 frames under the fine-tune crop: padded whole to 336x576,
+    # BEST_SCENEFLOW's multiple of 24 (the JAX drivers' 12 would give 324).
+    ("evaluate --full_frame", "evaluate", "train", ["--full_frame", "--crop_height", "288", "--crop_width", "576"],
+     "fused_head_sm90"),
 )
+# The input each run hands the model, for the runs whose frame 0 is held
+# against the model called directly on it.
+CLI_PADDED = {"evaluate": (CLI_H, CLI_W), "evaluate --full_frame": (336, 576)}
 
 
 def emit(obj) -> None:
@@ -374,13 +386,38 @@ def stage_times(calls: dict, returned: dict):
             setattr(owner, name, fn)
 
 
+def sm90_head_check(gen, shape: tuple[int, ...], maxdisp: int) -> dict:
+    """The sm90 head on seeded bf16 volumes of ``shape`` (peaky, wide,
+    diffuse) against its plain version in float64 within TOL_KERNEL_PX, then
+    its time, the plain version's and the bound on the diffuse one. Raises
+    if a kind disagrees."""
+    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_reference, conv_soft_argmin_sm90
+
+    b, c, d, h, w = shape
+    head = {"shape": list(shape), "dtype": "torch.bfloat16", "tol_px": TOL_KERNEL_PX}
+    for kind in ("peaky", "wide", "diffuse"):
+        vol, kern = head_inputs(gen, kind, b, c, d, h, w, gen.device)
+        vol = vol.to(torch.bfloat16)
+        ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
+        head[f"{kind}_max_abs_err_px"] = (conv_soft_argmin_sm90(vol, kern, maxdisp).double() - ref).abs().max().item()
+        del ref
+        if not head[f"{kind}_max_abs_err_px"] < TOL_KERNEL_PX:
+            raise AssertionError(f"sm90 head at {list(shape)}, {kind}: {head}")
+    head["ms"] = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp))
+    head["plain_ms"] = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
+    head["bound_ms"], head["bound_by"] = bound(vol.numel() * 2 + kern.numel() * 4 + b * 9 * h * w * 4,
+                                               2 * 27 * b * c * d * h * w, torch.bfloat16, b * 9 * h * w * d)
+    del vol, kern
+    torch.cuda.empty_cache()
+    return head
+
+
 def cli_phase(model, counters: dict, card: str) -> dict:
     """Phase 8: the drivers' ``main(argv)`` on the bundled KITTI frames with
     ``model``'s weights as ``--checkpoint``. Returns each run's launches."""
     from leastereo_tpu_torch.cli import evaluate, predict
     from leastereo_tpu_torch.data import ListSet, StereoListDataset
 
-    H, W = CLI_H, CLI_W
     dev = next(model.parameters()).device
     lists = ListSet.resolve("kitti15_part", str(REPO / "dataloaders" / "lists"))
     # PyTorch's default, which a user's process has (phase 1 turned it off).
@@ -431,9 +468,10 @@ def cli_phase(model, counters: dict, card: str) -> dict:
                     **{f"{k}_ms": v for k, v in ms.items()},
                     "launches": launches, "metrics_mean": means, "cudnn_tf32": True,
                     "note": "random seeded weights (phase 4's): the metrics show only that the pipeline runs"}
-            if run == "evaluate":
+            if run in CLI_PADDED:
                 # Frame 0 against phase 4's model on the same padded input,
                 # un-padded the same way (after the counts were read).
+                H, W = line["padded_to"] = CLI_PADDED[run]
                 ds = StereoListDataset("kitti15_part", lists.train, root=KITTI_ROOT, crop_size=(H, W), training=False)
                 s0 = ds[0]
                 with torch.inference_mode():
@@ -444,6 +482,13 @@ def cli_phase(model, counters: dict, card: str) -> dict:
                 line["frame0_tol_px"] = TOL_CLI_PX
                 if not line["frame0_vs_model_max_abs_px"] < TOL_CLI_PX:
                     raise AssertionError(f"cli frame 0 differs from the model by {line['frame0_vs_model_max_abs_px']} px")
+                if (H, W) != (CLI_H, CLI_W):
+                    # The head at the volume this padded size gives it, held
+                    # against float64 (the frame-0 check runs the same kernel
+                    # on both sides, so it cannot see a wrong one).
+                    shape = (1, 32, 64, H // 3, W // 3)
+                    check = sm90_head_check(torch.Generator(device=dev).manual_seed(8), shape, 192)
+                    line.update({f"head_{k}": v for k, v in check.items()})
             emit(line)
             result[run] = {"head": head, "launches": launches[head], "frames": frames}
     return result
@@ -461,7 +506,6 @@ def train_phase(counters: dict, card: str) -> dict:
     from leastereo_tpu_torch.cli import evaluate
     from leastereo_tpu_torch.cli import train as train_cli
     from leastereo_tpu_torch.data import ListSet, StereoListDataset, make_loader
-    from leastereo_tpu_torch.ops.fused_head import conv_soft_argmin_reference, conv_soft_argmin_sm90
     from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
     from leastereo_tpu_torch.ops.softargmin import soft_argmin
     from leastereo_tpu_torch.train import make_optimizer, masked_smooth_l1, train_step
@@ -505,24 +549,8 @@ def train_phase(counters: dict, card: str) -> dict:
 
     # 10a'. The sm90 head at every val frame's pre-head volume (eval at
     # 288x576: (1, 32, 64, 96, 192) bf16) against its plain version in float64.
-    c = 32
-    head = {"card": card, "shape": [1, c, d, h, w], "dtype": "torch.bfloat16", "tol_px": TOL_KERNEL_PX}
-    for kind in ("peaky", "wide", "diffuse"):
-        vol, kern = head_inputs(gen, kind, 1, c, d, h, w, dev)
-        vol = vol.to(torch.bfloat16)
-        ref = conv_soft_argmin_reference(vol.double(), kern.double(), maxdisp)
-        head[f"{kind}_max_abs_err_px"] = (conv_soft_argmin_sm90(vol, kern, maxdisp).double() - ref).abs().max().item()
-        del ref
-        if not head[f"{kind}_max_abs_err_px"] < TOL_KERNEL_PX:
-            emit({"phase": "train_val_head", **head})
-            raise AssertionError(f"sm90 head at the val frame's volume, {kind}: {head}")
-    head["ms"] = cuda_ms(lambda: conv_soft_argmin_sm90(vol, kern, maxdisp))
-    head["plain_ms"] = cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=5)
-    head["bound_ms"], head["bound_by"] = bound(vol.numel() * 2 + kern.numel() * 4 + 9 * h * w * 4,
-                                               2 * 27 * c * d * h * w, torch.bfloat16, 9 * h * w * d)
-    emit({"phase": "train_val_head", **head})
-    del vol, kern
-    torch.cuda.empty_cache()
+    head = sm90_head_check(gen, (1, 32, d, h, w), maxdisp)
+    emit({"phase": "train_val_head", "card": card, **head})
 
     # 10b. One train step (forward, masked loss, backward), kernel path against
     # plain path, fp32 with TF32 off, same weights and batch. Both share the
@@ -1971,7 +1999,7 @@ def main() -> int:
     # ---- 8. the predict and evaluate drivers on the bundled KITTI frames
     cli = cli_phase(model, counters, card)
     cli_of = {r["head"]: {"cli_run": run, "cli_launches": r["launches"], "cli_frames": r["frames"]}
-              for run, r in cli.items() if run != "predict"}
+              for run, r in cli.items() if run not in ("predict", "evaluate --full_frame")}
 
     # ---- 9. export: the .pt2 driver, the loaded programs' launches and times
     export_launches = export_phase(model, state, counters, card, 1e3 * elapsed / frames)

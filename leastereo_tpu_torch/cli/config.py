@@ -201,7 +201,8 @@ def predict_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--full_frame",
         action="store_true",
-        help="pad frames larger than the crop up to the next model-valid shape "
+        help="pad frames larger than the crop up to the next multiple of the "
+        "architecture's size_multiple (24 for the shipped one) "
         "and predict/evaluate the whole frame (the reference center-crops both "
         "prediction and GT, evaluation.py:288)",
     )

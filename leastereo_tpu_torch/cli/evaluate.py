@@ -116,9 +116,10 @@ def evaluate(args, mesh: Mesh) -> int:
     keys = ["epe", "err3", *(f"bad{t:g}" for t in args.thresholds), "valid_px"]
     # One row per frame, filled by the writer that evaluated it.
     table = torch.zeros(len(ds), len(keys), dtype=torch.float64, device=next(model.parameters()).device)
+    multiple = model.size_multiple if args.full_frame else None
     for i in range(mesh.data_index, len(ds), mesh.data):
         stack = ds.load_stack(i)
-        disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, full_frame=args.full_frame)
+        disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, args.full_frame, multiple)
         entropy = None
         if isinstance(disp, tuple):
             disp, entropy = disp

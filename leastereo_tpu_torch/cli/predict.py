@@ -60,7 +60,9 @@ def make_forward(model: torch.nn.Module):
 
 
 def pad_to_valid(h: int, w: int, multiple: int = 12) -> tuple[int, int]:
-    """Smallest model-valid (divisible by 3, and by 4 at 1/3 res) shape >= (h, w)."""
+    """Smallest shape >= (h, w) whose sides are multiples of ``multiple``;
+    a model takes every such shape when ``multiple`` is its
+    ``size_multiple``."""
     return (-(-h // multiple) * multiple, -(-w // multiple) * multiple)
 
 
@@ -71,21 +73,26 @@ def run_frame(
     crop_width: int,
     use_left: bool = True,
     full_frame: bool = False,
+    multiple: int | None = None,
 ):
     """Pad-or-crop one frame, run the model, un-pad the prediction
     (reference predict.py:144-174).
 
     ``full_frame=True`` is a capability superset of the reference: frames
-    larger than the crop are sentinel-padded up to the next model-valid shape
-    and evaluated whole instead of center-cropped (the reference always
-    center-crops both prediction and ground truth, evaluation.py:288).
+    larger than the crop are sentinel-padded up to the next multiple of
+    ``multiple``, which it then requires (the model's ``size_multiple``,
+    24 for ``BEST_SCENEFLOW``), and evaluated whole instead of
+    center-cropped (the reference always center-crops both prediction and
+    ground truth, evaluation.py:288).
 
     A ``fwd`` returning a tuple (e.g. ``(disp, entropy)`` with
     ``--confidence``) yields a tuple of identically un-padded maps.
     """
     _, h, w = stack.shape
     if full_frame:
-        crop_height, crop_width = pad_to_valid(max(h, crop_height), max(w, crop_width))
+        if multiple is None:
+            raise ValueError("full_frame pads to the model's size_multiple: pass it as multiple")
+        crop_height, crop_width = pad_to_valid(max(h, crop_height), max(w, crop_width), multiple)
     left, right, _ = test_transform(stack, crop_height, crop_width, use_left=use_left)
     out = fwd(left[None], right[None])
     is_tuple = isinstance(out, tuple)
@@ -150,10 +157,11 @@ def predict(args, mesh: Mesh) -> int:
 
     os.makedirs(args.output_dir, exist_ok=True)
     use_left = uses_left_disparity(args.dataset)
+    multiple = model.size_multiple if args.full_frame else None
     for i in range(mesh.data_index, len(ds), mesh.data):
         stack = ds.load_stack(i)
         with Timer() as t:
-            disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, full_frame=args.full_frame)
+            disp = run_frame(fwd, stack, args.crop_height, args.crop_width, use_left, args.full_frame, multiple)
         entropy = None
         if isinstance(disp, tuple):
             disp, entropy = disp

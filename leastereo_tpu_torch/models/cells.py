@@ -22,7 +22,17 @@ from ..ops.resize import resize2d, resize3d, scale_dimension
 from ..parallel.halo import DispPartition
 from .genotypes import OP_CONV, OP_SKIP, Architecture
 
-__all__ = ["FixedCell"]
+__all__ = ["FixedCell", "cell_out_size"]
+
+
+def cell_out_size(size: tuple[int, ...], downup_sample: int) -> tuple[int, ...]:
+    """A cell's output size for a ``s1`` of spatial ``size``: halved
+    (``downup_sample`` -1), kept (0) or doubled (+1) by ``scale_dimension``.
+    Both inputs are resized to it, so a cell takes inputs of any size."""
+    if downup_sample == 0:
+        return tuple(size)
+    scale = 0.5 if downup_sample == -1 else 2.0
+    return tuple(scale_dimension(d, scale) for d in size)
 
 
 class FixedCell(nn.Module):
@@ -91,10 +101,7 @@ class FixedCell(nn.Module):
 
     def out_size(self, size: tuple[int, ...]) -> tuple[int, ...]:
         """The cell's output size for a ``s1`` of spatial ``size``."""
-        if self.downup_sample == 0:
-            return tuple(size)
-        scale = 0.5 if self.downup_sample == -1 else 2.0
-        return tuple(scale_dimension(d, scale) for d in size)
+        return cell_out_size(size, self.downup_sample)
 
     def forward(
         self,

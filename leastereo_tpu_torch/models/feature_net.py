@@ -31,6 +31,7 @@ class FeatureNet(nn.Module):
         super().__init__()
         kw = dict(ndim=2, generator=generator)
         ifm = filter_multiplier * block_multiplier
+        self.genotype = genotype
         self.level = genotype.network_path[-1]
         self.stem0 = ConvBR(3, ifm // 2, 3, 1, 1, **kw)
         self.stem1 = ConvBR(ifm // 2, ifm, 3, 3, 1, **kw)

@@ -24,9 +24,11 @@ A refused fused head is logged once per reason and falls to the band kernel;
 a CUDA cost the band kernel refuses (``maxdisp != 3 * D``, or ``D > 569``)
 raises rather than run the plain version on the card. On a CPU tensor each
 kernel wrapper runs its plain version. Inputs are NHWC
-``(B, H, W, 3)`` with H, W divisible by 3 (and by 12 at 1/3 resolution for
-the deepest matching level), as in the JAX model; the output is ``(B, H, W)``
-fp32, or ``(disp, entropy)`` with ``return_entropy``.
+``(B, H, W, 3)`` with H, W divisible by 3 and of a size the architecture
+takes: every multiple of its ``size_multiple`` is one (24 for
+``BEST_SCENEFLOW``); at other sizes a cell may raise, as in the JAX model.
+The output is ``(B, H, W)`` fp32, or ``(disp, entropy)`` with
+``return_entropy``.
 
 With ``cost_volume_pspec`` naming the ``disp`` axis, the matching net runs
 on this rank's slab of the volume's D planes over the ``disp`` group of
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 
 import torch
 import torch.nn as nn
@@ -61,9 +64,10 @@ from ..parallel.halo import DispPartition
 from ..parallel.mesh import DATA_AXIS, DISP_AXIS
 from .feature_net import FeatureNet
 from .genotypes import BEST_SCENEFLOW, Architecture
-from .matching_net import MatchingNet
+from .cells import cell_out_size
+from .matching_net import DEFAULT_SKIPS, MatchingNet
 
-__all__ = ["LEAStereoConfig", "LEAStereo", "best_sceneflow_model", "require_cuda"]
+__all__ = ["LEAStereoConfig", "LEAStereo", "best_sceneflow_model", "require_cuda", "size_multiple"]
 
 logger = logging.getLogger(__name__)
 
@@ -106,6 +110,54 @@ class LEAStereoConfig:
         return getattr(torch, self.compute_dtype)
 
 
+def _cell_sizes(arch: Architecture, n: int) -> list[int]:
+    """The size of each cell's output along one axis, from stems of size
+    ``n``: each cell's output is ``cell_out_size`` of the previous one's."""
+    sizes = []
+    for layer in range(arch.num_layers):
+        n = cell_out_size((n,), arch.downup(layer))[0]
+        sizes.append(n)
+    return sizes
+
+
+def _takes(feature_arch: Architecture, matching_arch: Architecture, skips, n: int) -> bool:
+    """Whether the nets take an axis of ``n`` at 1/3 resolution (the stride-3
+    stem's output) and return it at ``n``. A cell resizes both its inputs to
+    its own size, so only the matching net's long skips, which concatenate
+    two cells' outputs, can meet tensors of different sizes; and a net whose
+    path ends at level 0 returns its last cell's size, where the heads of
+    the deeper levels resize to ``n``."""
+    fea, mat = _cell_sizes(feature_arch, n), _cell_sizes(matching_arch, n)
+    if any(mat[src] != mat[tgt] for src, tgt in skips if tgt < len(mat)):
+        return False
+    ends = ((feature_arch.network_path[-1], fea[-1]), (matching_arch.network_path[-1], mat[-1]))
+    return all(level > 0 or last == n for level, last in ends)
+
+
+def size_multiple(feature_arch: Architecture, matching_arch: Architecture, skips=DEFAULT_SKIPS) -> int:
+    """The multiple a full frame's H and W are padded to: the least common
+    multiple of 12 (the JAX drivers' step) and ``3 * p``, with ``p`` the
+    least size at 1/3 resolution whose every multiple the nets take.
+
+    Halving rounds an odd size up and doubling maps it to ``2n - 1``
+    (``scale_dimension``), so along a path that reaches level ``L`` at most
+    each size is ``q * 2**(L - level)`` plus a term fixed by ``n mod
+    2**(L + 1)`` (``n = q * 2**L + r``): whether the nets take ``n`` depends
+    on that residue alone, and the first ``2**(L + 1)`` multiples of ``p``
+    meet every residue its multiples do. Multiples of ``2**(L + 1)`` halve
+    exactly down to an even size at level ``L``, which doubles back exactly,
+    so that is the most ``p`` can be when the ``skips`` of the matching net
+    join cells of one level; where they do not, no size is taken, and this
+    raises."""
+    period = 2 ** (max(feature_arch.network_path + matching_arch.network_path) + 1)
+    for p in range(1, period + 1):
+        if all(_takes(feature_arch, matching_arch, skips, k * p) for k in range(1, period + 1)):
+            return math.lcm(12, 3 * p)
+    raise ValueError(
+        f"the matching path {matching_arch.network_path}: its skips {skips} join cells of different levels"
+    )
+
+
 class LEAStereo(nn.Module):
     def __init__(
         self,
@@ -130,6 +182,13 @@ class LEAStereo(nn.Module):
         )
         self._gate_warned: set[str] = set()
         self.mesh = None  # parallel.Mesh of a cost_volume_pspec run; None: 1x1
+
+    @property
+    def size_multiple(self) -> int:
+        """The multiple of H and W that a full frame is padded to
+        (``cli/predict.py``), from the nets' paths and the matching net's
+        skips (``size_multiple``)."""
+        return size_multiple(self.feature.genotype, self.matching.genotype, self.matching.skips)
 
     def _warn_once(self, msg: str) -> None:
         if msg not in self._gate_warned:

@@ -86,6 +86,8 @@ class MatchingNet(nn.Module):
         super().__init__()
         kw = dict(ndim=3, generator=generator)
         ifm = filter_multiplier * block_multiplier
+        self.genotype = genotype
+        self.skips = tuple(skips)
         self.level = genotype.network_path[-1]
         self.stem0 = FusedStem0(feature_channels, ifm, generator=generator)
         self.stem1 = ConvBR(ifm, ifm, 3, 1, 1, **kw)

@@ -50,7 +50,16 @@ def checkpoint(workspace):  # noqa: F811
 
 @pytest.fixture(autouse=True)
 def one_thread_ranks(monkeypatch):
+    """The ranks and the test's own process on one intra-op thread. Beside
+    other test workers (pytest-xdist) a pool of one thread a core
+    oversubscribes the cores: the in-process one-rank search run of
+    ``test_search_driver_replicates_over_disp`` then took over ten times as
+    long as alone."""
     monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _arrays(d):
