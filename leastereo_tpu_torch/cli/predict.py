@@ -33,6 +33,7 @@ from ..data.transforms import test_transform
 from ..parallel import Mesh
 from ..utils.checkpoint import load_state_dict_file
 from ..utils.colorize import colorize_disparity
+from ..utils.tracing import span
 from .common import Timer, build_model, run_on_mesh
 from .config import predict_parser
 
@@ -47,14 +48,16 @@ def make_forward(model: torch.nn.Module):
     device = next(model.parameters()).device
 
     def fwd(left: np.ndarray, right: np.ndarray):
-        with torch.inference_mode():
-            out = model(
-                torch.from_numpy(np.ascontiguousarray(left, np.float32)).to(device),
-                torch.from_numpy(np.ascontiguousarray(right, np.float32)).to(device),
-            )
-        if isinstance(out, tuple):
-            return tuple(o.float().cpu().numpy() for o in out)
-        return out.float().cpu().numpy()
+        with span("frame"):
+            with torch.inference_mode():
+                with span("h2d"):
+                    left = torch.from_numpy(np.ascontiguousarray(left, np.float32)).to(device)
+                    right = torch.from_numpy(np.ascontiguousarray(right, np.float32)).to(device)
+                out = model(left, right)
+            with span("d2h"):
+                if isinstance(out, tuple):
+                    return tuple(o.float().cpu().numpy() for o in out)
+                return out.float().cpu().numpy()
 
     return fwd
 
@@ -93,7 +96,8 @@ def run_frame(
         if multiple is None:
             raise ValueError("full_frame pads to the model's size_multiple: pass it as multiple")
         crop_height, crop_width = pad_to_valid(max(h, crop_height), max(w, crop_width), multiple)
-    left, right, _ = test_transform(stack, crop_height, crop_width, use_left=use_left)
+    with span("transform"):
+        left, right, _ = test_transform(stack, crop_height, crop_width, use_left=use_left)
     out = fwd(left[None], right[None])
     is_tuple = isinstance(out, tuple)
 
@@ -110,10 +114,11 @@ def save_confidence(output_dir: str, name: str, entropy: np.ndarray) -> None:
     """``<name>_conf.png`` (entropy over its max, gray) and ``<name>_conf.npy``."""
     from PIL import Image
 
-    Image.fromarray(
-        (np.clip(entropy / max(entropy.max(), 1e-12), 0, 1) * 255).astype(np.uint8)
-    ).save(os.path.join(output_dir, f"{name}_conf.png"))
-    np.save(os.path.join(output_dir, f"{name}_conf.npy"), entropy)
+    gray = (np.clip(entropy / max(entropy.max(), 1e-12), 0, 1) * 255).astype(np.uint8)
+    with span("png"):
+        Image.fromarray(gray).save(os.path.join(output_dir, f"{name}_conf.png"))
+    with span("npy"):
+        np.save(os.path.join(output_dir, f"{name}_conf.npy"), entropy)
 
 
 def save_frame(output_dir: str, name: str, disp: np.ndarray, entropy=None, gt=None, maxdisp: int = 192) -> None:
@@ -121,14 +126,18 @@ def save_frame(output_dir: str, name: str, disp: np.ndarray, entropy=None, gt=No
     when ``entropy`` is given; ``<name>_gt.png`` when ``gt`` is."""
     from PIL import Image
 
-    if entropy is not None:
-        save_confidence(output_dir, name, entropy)
-    Image.fromarray(colorize_disparity(disp)).save(os.path.join(output_dir, f"{name}.png"))
-    np.save(os.path.join(output_dir, f"{name}.npy"), disp)
-    if gt is not None:
-        Image.fromarray(colorize_disparity(gt, vmin=0, vmax=maxdisp)).save(
-            os.path.join(output_dir, f"{name}_gt.png")
-        )
+    with span("save"):
+        if entropy is not None:
+            save_confidence(output_dir, name, entropy)
+        render = colorize_disparity(disp)
+        with span("png"):
+            Image.fromarray(render).save(os.path.join(output_dir, f"{name}.png"))
+        with span("npy"):
+            np.save(os.path.join(output_dir, f"{name}.npy"), disp)
+        if gt is not None:
+            render = colorize_disparity(gt, vmin=0, vmax=maxdisp)
+            with span("png"):
+                Image.fromarray(render).save(os.path.join(output_dir, f"{name}_gt.png"))
 
 
 def main(argv=None) -> int:

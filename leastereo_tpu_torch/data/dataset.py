@@ -15,6 +15,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils.tracing import span
 from .loaders import LOADERS, uses_left_disparity
 from .transforms import test_transform, train_transform
 
@@ -105,7 +106,8 @@ class StereoListDataset:
         return len(self.entries)
 
     def load_stack(self, index: int) -> np.ndarray:
-        return LOADERS[self.dataset](self.root, self.entries[index])
+        with span("load"):
+            return LOADERS[self.dataset](self.root, self.entries[index])
 
     def __getitem__(self, index: int, epoch: int = 0) -> StereoSample:
         stack = self.load_stack(index)

@@ -15,6 +15,7 @@ import os
 
 import numpy as np
 
+from ..utils.tracing import span
 from .pfm import read_pfm
 from .transforms import standardize_stack
 
@@ -37,7 +38,8 @@ __all__ = [
 def _open_image(path) -> np.ndarray:
     from PIL import Image
 
-    return np.asarray(Image.open(path))
+    with span("decode"):
+        return np.asarray(Image.open(path))
 
 
 def _finish(stack: np.ndarray, disp_left, disp_right) -> np.ndarray:
@@ -53,7 +55,8 @@ def _load_png_pfm_pair(left_png, right_png, disp_l_pfm, disp_r_pfm) -> np.ndarra
     from .native import load_stereo_sample_native, native_available
 
     if native_available():
-        return load_stereo_sample_native(left_png, right_png, disp_l_pfm, disp_r_pfm)
+        with span("decode"):
+            return load_stereo_sample_native(left_png, right_png, disp_l_pfm, disp_r_pfm)
     left = _open_image(left_png)
     right = _open_image(right_png)
     return _finish(standardize_stack(left, right), read_pfm(disp_l_pfm), read_pfm(disp_r_pfm))

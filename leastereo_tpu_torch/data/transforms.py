@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.tracing import span
+
 __all__ = [
     "standardize_stack",
     "train_transform",
@@ -39,14 +41,15 @@ def standardize_stack(left: np.ndarray, right: np.ndarray) -> np.ndarray:
     each RGB channel is centered/scaled by its own mean/std. Disparity
     channels (6, 7) are left zeroed for the caller to fill.
     """
-    h, w = left.shape[:2]
-    stack = np.zeros((8, h, w), np.float32)
-    for out, img in ((stack[0:3], left), (stack[3:6], right)):
-        img = np.asarray(img, np.float32)
-        for c in range(3):
-            ch = img[:, :, c]
-            out[c] = (ch - ch.mean()) / ch.std()
-    return stack
+    with span("standardize"):
+        h, w = left.shape[:2]
+        stack = np.zeros((8, h, w), np.float32)
+        for out, img in ((stack[0:3], left), (stack[3:6], right)):
+            img = np.asarray(img, np.float32)
+            for c in range(3):
+                ch = img[:, :, c]
+                out[c] = (ch - ch.mean()) / ch.std()
+        return stack
 
 
 def _pad_to(stack: np.ndarray, out_h: int, out_w: int) -> np.ndarray:

@@ -62,6 +62,7 @@ from ..ops.softargmin import (
 )
 from ..parallel.halo import DispPartition
 from ..parallel.mesh import DATA_AXIS, DISP_AXIS
+from ..utils.tracing import span
 from .feature_net import FeatureNet
 from .genotypes import BEST_SCENEFLOW, Architecture
 from .cells import cell_out_size
@@ -197,30 +198,41 @@ class LEAStereo(nn.Module):
 
     def forward(self, left: torch.Tensor, right: torch.Tensor):
         """NHWC ``(B, H, W, 3)`` images -> ``(B, H, W)`` fp32 disparity."""
-        cfg = self.config
-        dtype = cfg.dtype
-        b, h, w = left.shape[:3]
-        if h % 3 or w % 3:
-            # The stride-3 stem would round up and return a larger map; sizes
-            # that divide by 3 but not by the deeper levels fail in the nets.
-            raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
-        # Shared weights across views (reference retrain/LEAStereo.py:31-32).
-        if self.training:
-            # One call per view, as the reference and the JAX model
-            # (leastereo_tpu/models/leastereo.py:97-99): each BN normalises
-            # with one view's statistics and updates its running stats per view.
-            f_left = self.feature(left.permute(0, 3, 1, 2).to(dtype))
-            f_right = self.feature(right.permute(0, 3, 1, 2).to(dtype))
-        else:
-            # Eval BN reads running stats, so both views run as one batch.
-            feats = self.feature(torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype))
-            f_left, f_right = feats[:b], feats[b:]
-        if cfg.cost_volume_pspec is not None:
-            return self._sharded_head(f_left, f_right)
-        vol = self.matching(f_left, f_right, cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
+        with span("forward"):
+            cfg = self.config
+            dtype = cfg.dtype
+            b, h, w = left.shape[:3]
+            if h % 3 or w % 3:
+                # The stride-3 stem would round up and return a larger map; sizes
+                # that divide by 3 but not by the deeper levels fail in the nets.
+                raise ValueError(f"input {h}x{w}: height and width must be divisible by 3")
+            # Shared weights across views (reference retrain/LEAStereo.py:31-32).
+            if self.training:
+                # One call per view, as the reference and the JAX model
+                # (leastereo_tpu/models/leastereo.py:97-99): each BN normalises
+                # with one view's statistics and updates its running stats per view.
+                with span("feature"):
+                    f_left = self.feature(left.permute(0, 3, 1, 2).to(dtype))
+                with span("feature"):
+                    f_right = self.feature(right.permute(0, 3, 1, 2).to(dtype))
+            else:
+                # Eval BN reads running stats, so both views run as one batch.
+                with span("feature"):
+                    feats = self.feature(torch.cat([left, right]).permute(0, 3, 1, 2).to(dtype))
+                f_left, f_right = feats[:b], feats[b:]
+            if cfg.cost_volume_pspec is not None:
+                return self._sharded_head(f_left, f_right)
+            with span("matching"):
+                vol = self.matching(f_left, f_right, cfg.maxdisp // 3, fused_stem=cfg.fused_stem)
+            with span("head"):
+                return self._head(vol)
 
+    def _head(self, vol: torch.Tensor):
+        """The pre-head volume -> the disparity (and entropy): ``last_3`` and
+        the soft-argmin, fused into one kernel where a gate admits it."""
+        cfg = self.config
         last_3 = self.matching.last_3
-        kernel = last_3.conv.weight.to(dtype)
+        kernel = last_3.conv.weight.to(cfg.dtype)
         if cfg.pallas_head and not self.training and not cfg.fast_head and not cfg.return_entropy:
             _, c, d, _, w = vol.shape
             if fused_head_route(c, d, w, cfg.maxdisp, vol.dtype) is not None:
@@ -253,13 +265,15 @@ class LEAStereo(nn.Module):
         """The matching net on this rank's slab and the plain distributed head."""
         cfg = self.config
         part = self.disp_partition()
-        vol = self.matching(f_left, f_right, part.depth, fused_stem=cfg.fused_stem, part=part)
-        cost = self.matching.last_3(vol, part)[:, 0]
-        head = soft_argmin_fast_sharded if cfg.fast_head else soft_argmin_sharded
-        disp = head(cost, part, cfg.maxdisp)
-        if cfg.return_entropy:
-            return disp, disparity_entropy_sharded(cost, part, cfg.maxdisp)
-        return disp
+        with span("matching"):
+            vol = self.matching(f_left, f_right, part.depth, fused_stem=cfg.fused_stem, part=part)
+        with span("head"):
+            cost = self.matching.last_3(vol, part)[:, 0]
+            head = soft_argmin_fast_sharded if cfg.fast_head else soft_argmin_sharded
+            disp = head(cost, part, cfg.maxdisp)
+            if cfg.return_entropy:
+                return disp, disparity_entropy_sharded(cost, part, cfg.maxdisp)
+            return disp
 
 
 def require_cuda() -> None:

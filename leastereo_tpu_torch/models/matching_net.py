@@ -27,6 +27,7 @@ from ..ops.cost_volume import build_cost_volume
 from ..ops.fused_stem import fused_cost_volume_stem
 from ..ops.resize import resize3d
 from ..parallel.halo import DispPartition
+from ..utils.tracing import span
 from .cells import FixedCell
 from .genotypes import FILTER_SCALE, Architecture
 
@@ -133,7 +134,8 @@ class MatchingNet(nn.Module):
         ``(B, ifm, num_disp, h, w)`` (input of ``last_3``); with ``part`` (of
         ``num_disp`` planes), rank ``part.rank``'s slab of it."""
         d, h, w = num_disp, left.shape[2], left.shape[3]
-        stem0 = self.stem0(left, right, num_disp, fused=fused_stem, part=part)
+        with span("stem"):
+            stem0 = self.stem0(left, right, num_disp, fused=fused_stem, part=part)
         stem1 = self.stem1(stem0, part)
 
         concats: list[torch.Tensor] = []

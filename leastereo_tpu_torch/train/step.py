@@ -40,6 +40,7 @@ import torch
 
 from ..ops.convbr import set_bn_group
 from ..parallel.mesh import Mesh, all_reduce, all_reduce_grads
+from ..utils.tracing import span
 from .losses import edge_aware_smoothness_loss, masked_smooth_l1, validity_mask
 from .metrics import epe, three_px_error
 
@@ -185,22 +186,28 @@ def train_step(
     With ``mesh``, ``batch`` is this rank's rows and the step is the data-
     parallel, and with ``mesh.disp > 1`` the disparity-sharded, step
     (module docstring): the returned numbers are those of the global batch."""
-    model.train()
-    grad_group = _step_groups(model, mesh)
-    group = _data_group(mesh)
-    left, right, target = _to_model(batch, model)
-    for g in optimizer.param_groups:
-        g["lr"] = lr
-    count = None if group is None else global_count(validity_mask(target, maxdisp), group)
-    disp = model(left, right).float()
-    loss = masked_smooth_l1(disp, target, maxdisp, count)
-    if edge_loss_w:
-        loss = loss + edge_loss_w * edge_aware_smoothness_loss(disp, target, maxdisp, count)
-    optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], grad_group)
-    optimizer.step()
-    return global_metrics(disp.detach(), target, maxdisp, group, loss)
+    with span("step"):
+        model.train()
+        grad_group = _step_groups(model, mesh)
+        group = _data_group(mesh)
+        with span("h2d"):
+            left, right, target = _to_model(batch, model)
+        for g in optimizer.param_groups:
+            g["lr"] = lr
+        count = None if group is None else global_count(validity_mask(target, maxdisp), group)
+        disp = model(left, right).float()
+        with span("loss"):
+            loss = masked_smooth_l1(disp, target, maxdisp, count)
+            if edge_loss_w:
+                loss = loss + edge_loss_w * edge_aware_smoothness_loss(disp, target, maxdisp, count)
+        with span("backward"):
+            optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+        all_reduce_grads([p for g in optimizer.param_groups for p in g["params"]], grad_group)
+        with span("optimizer"):
+            optimizer.step()
+        with span("metrics"):
+            return global_metrics(disp.detach(), target, maxdisp, group, loss)
 
 
 def eval_step(

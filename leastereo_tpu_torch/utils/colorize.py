@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .tracing import span
+
 __all__ = ["turbo_colormap", "colorize_disparity"]
 
 # Turbo polynomial coefficients (degree 5), google/turbo reference
@@ -36,14 +38,15 @@ def colorize_disparity(
 ) -> np.ndarray:
     """Disparity map (H, W) -> uint8 RGB (H, W, 3) via Turbo
     (reference predict.py:245-246 rendering path)."""
-    disp = np.asarray(disp, np.float32)
-    finite = np.isfinite(disp)
-    if vmin is None:
-        vmin = float(disp[finite].min()) if finite.any() else 0.0
-    if vmax is None:
-        vmax = float(disp[finite].max()) if finite.any() else 1.0
-    scale = max(vmax - vmin, 1e-6)
-    idx = np.clip((disp - vmin) / scale, 0.0, 1.0)
-    idx = np.nan_to_num(idx, nan=0.0)
-    table = turbo_colormap(256)
-    return (table[(idx * 255).astype(np.int32)] * 255).astype(np.uint8)
+    with span("colorize"):
+        disp = np.asarray(disp, np.float32)
+        finite = np.isfinite(disp)
+        if vmin is None:
+            vmin = float(disp[finite].min()) if finite.any() else 0.0
+        if vmax is None:
+            vmax = float(disp[finite].max()) if finite.any() else 1.0
+        scale = max(vmax - vmin, 1e-6)
+        idx = np.clip((disp - vmin) / scale, 0.0, 1.0)
+        idx = np.nan_to_num(idx, nan=0.0)
+        table = turbo_colormap(256)
+        return (table[(idx * 255).astype(np.int32)] * 255).astype(np.uint8)
