@@ -33,7 +33,15 @@ caught, so any failure exits non-zero):
    ``kernel_parity`` (the model's map against float64 on the volume and
    kernel it hands its head, the ``last_3`` kernel as calibrated, 10x and
    0.1x), then the default forward (sm90 fused head, once per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
-   kernel). Launch counts are zeroed just before and read just after.
+   kernel). Launch counts are zeroed just before and read just after; the
+   default forward's also those of the NDHWC kernels (``csrc/ndhwc.cu``:
+   stem, concat, resize; 1, 14 and 17 a frame) and its 3-D eval ConvBR
+   routes (93 fused, 7 unfused NDHWC, none NCDHW a frame). Then one frame
+   at KITTI and one at Middlebury (1008x1512, maxdisp 408, bf16) in which
+   every call of an NDHWC kernel is held bit for bit against its plain
+   version on the same input (the stem against the fused stem's NCDHW
+   PyTorch gathers, the concat against ``torch.cat``, the resize, the last
+   one written NCDHW, against ``F.interpolate``), each timed beside it.
 5. layers and profile: per-layer times and the device's busy share; four
    fp32 KITTI frames' device time and the fp32 sm90 head's share of it (one
    launch a frame, no other head's; counts zeroed just before, read just
@@ -113,9 +121,10 @@ caught, so any failure exits non-zero):
 12. parallel: (a) the disparity-sharded KITTI frame (384x1248, full width)
    on two processes of the one card over gloo with CUDA tensors, in fp32
    (TF32 off) at maxdisp 192 and 408, each within 1e-3 px of the
-   one-process frame with the plain head, and no further from the same
-   model's float64 frame than the one-process fp32 frame is (plus 1e-3
-   px), then in bf16 (finite; ms a frame,
+   one-process frame with the plain head (its volumes NDHWC; the gap to
+   the same frame with its volumes kept NCDHW printed beside it), and no
+   further from the same model's float64 frame than the one-process fp32
+   frame is (plus 1e-3 px), then in bf16 (finite; ms a frame,
    the collectives' ms a frame, each rank's peak memory), with no head
    kernel launched (counts zeroed just before, read just after); (b) three
    data-parallel SGD steps of the fine-tune shapes (288x576, global batch
@@ -183,6 +192,13 @@ KERNEL_GROUPS = (
 TOL_KERNEL_PX = kernel_parity.ATOL_PX  # kernels against float64 plain versions
 SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
+SRC_NDHWC = "leastereo_tpu_torch/csrc/ndhwc.cu"
+MD_FRAME = (1008, 1512, 408)  # a Middlebury frame (predict_md.sh): H, W, maxdisp
+# The NDHWC kernels' calls a frame, and the 3-D eval ConvBR routes a frame
+# (the 7 conv-then-resize projections of models/cells.py apply their ReLU
+# after the resize, so they take the unfused route).
+NDHWC_CALLS = {"stem_ndhwc": 1, "cat_ndhwc": 14, "resize_ndhwc": 17}
+CONVBR_ROUTES = {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
 TOL_CLI_PX = 2e-3  # the evaluate driver's frame 0 against the model called directly
 TOL_EXPORT_PX = 1e-3  # a loaded .pt2 program against the eager model (the driver's own round-trip bound)
@@ -1248,8 +1264,14 @@ def parallel_phase(counters: dict, card: str) -> dict:
     left, right = torch.from_numpy(left_np).cuda(), torch.from_numpy(right_np).cuda()
     inp = {"left": left_np, "right": right_np, "lr": PAR_LR}
     # (a) references: the one-process fp32 frame with the plain head, and the
-    # same model in float64 (how far fp32 rounding alone moves the frame).
-    ref, ref64 = {}, {}
+    # same model in float64 (how far fp32 rounding alone moves the frame);
+    # beside them, not held, the fp32 frame with its volumes kept NCDHW, as
+    # the sharded path keeps them (the eval frame's are NDHWC).
+    from unittest import mock
+
+    from leastereo_tpu_torch.models.matching_net import MatchingNet
+
+    ref, ref64, ref_ncdhw = {}, {}, {}
     for md in PAR_MAXDISPS:
         model = best_sceneflow_model(LEAStereoConfig(maxdisp=md, compute_dtype="float32", pallas_head=False), seed=md)
         calibrate_head(model, left, right)
@@ -1258,6 +1280,8 @@ def parallel_phase(counters: dict, card: str) -> dict:
         with torch.inference_mode():
             ref[md] = model(left, right).cpu()
             ref64[md] = model64(left.double(), right.double()).cpu()
+            with mock.patch.object(MatchingNet, "layout", lambda self, part: torch.contiguous_format):
+                ref_ncdhw[md] = model(left, right).cpu()
         inp[f"sd{md}"] = {k: v.cpu() for k, v in model.state_dict().items()}
         del model, model64
     torch.cuda.empty_cache()
@@ -1328,6 +1352,9 @@ def parallel_phase(counters: dict, card: str) -> dict:
         one64 = (ref[md].double() - ref64[md]).abs().max().item()
         sharded[f"maxdisp_{md}"] = {"max_abs_diff_px": errs, "disp_std": ref[md].std().item(),
                                     "sharded_vs_float64_px": errs64, "one_process_vs_float64_px": one64,
+                                    "sharded_vs_ncdhw_frame_px": [(o[f"fp32_{md}"] - ref_ncdhw[md]).abs().max().item()
+                                                                  for o in outs],
+                                    "one_process_vs_ncdhw_frame_px": (ref[md] - ref_ncdhw[md]).abs().max().item(),
                                     "launches": [o[f"fp32_{md}_launches"] for o in outs],
                                     "peak_gb_per_rank": [o[f"fp32_{md}_peak_gb"] for o in outs]}
         ok &= all(e <= TOL_PAR_PX for e in errs) and all(o[f"fp32_{md}_launches"] == zero for o in outs)
@@ -1589,6 +1616,110 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
     return export_launches
 
 
+def ndhwc_counters() -> dict:
+    """The launch counters of the NDHWC kernels (``csrc/ndhwc.cu``), by kernel."""
+    from leastereo_tpu_torch.ops.fused_stem import stem_ndhwc_cuda
+    from leastereo_tpu_torch.ops.layout import cat_ndhwc_cuda
+    from leastereo_tpu_torch.ops.resize import resize3d_ndhwc_cuda
+
+    return {"stem_ndhwc": stem_ndhwc_cuda, "cat_ndhwc": cat_ndhwc_cuda, "resize_ndhwc": resize3d_ndhwc_cuda}
+
+
+def ndhwc_frame_check(model, left, right, label: str, card: str) -> dict:
+    """One eval frame of ``model`` in which every call of an NDHWC kernel is
+    held bit for bit against its plain version on the same input and timed
+    beside it (CUDA events, 5 calls each): the stem kernel inside the fused
+    stem (plain: the fused stem's NCDHW PyTorch gathers, then one conversion
+    to NDHWC), the concat (``torch.cat``) and the resize (``F.interpolate``;
+    the last resize writes NCDHW). Per kernel, summed over the frame: calls,
+    unequal outputs, the largest difference, ms, library_ms (the plain
+    version's), bound_ms (its bytes at the memory rate). Raises on any
+    difference or a wrong layout."""
+    from unittest import mock
+
+    import leastereo_tpu_torch.models.matching_net as mn
+    from leastereo_tpu_torch.ops import fused_stem, layout, resize
+
+    stats = {k: {"calls": 0, "unequal": 0, "wrong_layout": 0, "max_abs_diff": 0.0, "ms": 0.0, "library_ms": 0.0,
+                 "bound_ms": 0.0, "shapes": []} for k in NDHWC_CALLS}
+    timed_stem = {}
+
+    def record(name, got, want, fmt, run, plain, nbytes):
+        st = stats[name]
+        st["calls"] += 1
+        st["unequal"] += int(not torch.equal(got, want))
+        st["wrong_layout"] += int(not got.is_contiguous(memory_format=fmt))
+        st["max_abs_diff"] = max(st["max_abs_diff"], (got.float() - want.float()).abs().max().item())
+        st["ms"] += cuda_ms(run, iters=5, warmup=1)
+        st["library_ms"] += cuda_ms(plain, iters=5, warmup=1)
+        st["bound_ms"] += bound(nbytes, 0, got.dtype, 0)[0]
+        st["shapes"].append(list(got.shape))
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    stem_kernel, stem, cat_kernel, resize_kernel = (
+        fused_stem.stem_ndhwc_cuda, mn.fused_cost_volume_stem, layout.cat_ndhwc_cuda, resize.resize3d_ndhwc_cuda)
+
+    def stem_kernel_timed(*args):
+        out = stem_kernel(*args)
+        timed_stem["run"], timed_stem["bytes"] = (lambda: stem_kernel(*args)), nbytes(out, *args[:3])
+        return out
+
+    def stem_checked(left_f, right_f, kernel, num_disp, **kw):
+        got = stem(left_f, right_f, kernel, num_disp, **kw)
+        plain_kw = dict(kw, memory_format=torch.contiguous_format)
+
+        def plain():
+            return stem(left_f, right_f, kernel, num_disp, **plain_kw).contiguous(memory_format=torch.channels_last_3d)
+
+        record("stem_ndhwc", got, plain(), torch.channels_last_3d, timed_stem["run"], plain, timed_stem["bytes"])
+        library = stats["stem_ndhwc"]
+        library["fused_stem_ms"] = library.get("fused_stem_ms", 0.0) + cuda_ms(
+            lambda: stem(left_f, right_f, kernel, num_disp, **kw), iters=5, warmup=1)
+        return got
+
+    def cat_checked(xs):
+        got = cat_kernel(xs)
+        record("cat_ndhwc", got, torch.cat(xs, dim=1), torch.channels_last_3d, lambda: cat_kernel(xs),
+               lambda: torch.cat(xs, dim=1), 2 * nbytes(got))
+        return got
+
+    def resize_checked(x, out_dhw, memory_format=torch.channels_last_3d):
+        got = resize_kernel(x, out_dhw, memory_format)
+
+        def plain():
+            return F.interpolate(x, size=tuple(out_dhw), mode="trilinear", align_corners=True)
+
+        record("resize_ndhwc", got, plain(), memory_format, lambda: resize_kernel(x, out_dhw, memory_format), plain,
+               nbytes(x, got))
+        return got
+
+    # The kernels' wrappers count their launches under their module names,
+    # which resolve to these stand-ins while they are patched in.
+    for fn in (stem_kernel_timed, cat_checked, resize_checked):
+        fn.launches = 0
+    with (mock.patch.object(fused_stem, "stem_ndhwc_cuda", stem_kernel_timed),
+          mock.patch.object(mn, "fused_cost_volume_stem", stem_checked),
+          mock.patch.object(layout, "cat_ndhwc_cuda", cat_checked),
+          mock.patch.object(resize, "resize3d_ndhwc_cuda", resize_checked), torch.inference_mode()):
+        disp = model(left, right)
+        torch.cuda.synchronize()
+    line = {"phase": "ndhwc_kernels", "card": card, "frame": label, "shape": [1, *left.shape[1:3]],
+            "maxdisp": model.config.maxdisp, "dtype": model.config.compute_dtype,
+            "finite": bool(torch.isfinite(disp).all()), **stats,
+            "note": "each call against its plain version on the same input; ms, library_ms, bound_ms summed over "
+                    "the frame's calls (CUDA events, 5 calls each); stem library_ms: the fused stem's NCDHW "
+                    "gathers and one conversion to NDHWC, against the kernel alone (fused_stem_ms: the whole "
+                    "NDHWC fused stem)"}
+    emit(line)
+    bad = {k: st for k, st in stats.items()
+           if st["calls"] != NDHWC_CALLS[k] or st["unequal"] or st["wrong_layout"] or st["max_abs_diff"] != 0.0}
+    if bad or not line["finite"]:
+        raise AssertionError(f"NDHWC kernels at {label}: {line}")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the card only", file=sys.stderr)
@@ -1770,7 +1901,13 @@ def main() -> int:
         emit_check(check)
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
+    from leastereo_tpu_torch.ops.convbr import ConvBR
+
+    ndhwc = ndhwc_counters()
     zero_counts()
+    for fn in ndhwc.values():
+        fn.launches = 0
+    routes0 = dict(ConvBR.eval_routes)
     warmup = 3
     with torch.inference_mode():
         for _ in range(warmup):  # warm-up: cuDNN algorithm selection, allocator
@@ -1790,6 +1927,8 @@ def main() -> int:
         elapsed = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         default_launches = read_counts()
+        ndhwc_launches = {k: fn.launches for k, fn in ndhwc.items()}
+        convbr_routes = {k: v - routes0[k] for k, v in ConvBR.eval_routes.items()}
         disp_conf, ent = model_conf(left, right)
         torch.cuda.synchronize()
     launches = read_counts()
@@ -1800,15 +1939,29 @@ def main() -> int:
         and tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and math.isfinite(witness.item())
         and default_launches == {k: default_frames if k == "fused_head_sm90" else 0 for k in counters}
         and launches["band_soft_argmin"] == 1
+        and ndhwc_launches == {k: n * default_frames for k, n in NDHWC_CALLS.items()}
+        and convbr_routes == {k: n * default_frames for k, n in CONVBR_ROUTES.items()}
     )
     emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
           "frames": frames, "seconds": elapsed, "frames_per_s": frames / elapsed, "ms_per_frame": 1e3 * elapsed / frames,
           "peak_mem_gb": peak_gb, "disp_min": float(d_np.min()), "disp_max": float(d_np.max()), "disp_std": float(d_np.std()),
           "default_forward_frames": default_frames, "default_forward_launches": default_launches,
-          "launches": launches,
+          "launches": launches, "default_forward_ndhwc_launches": ndhwc_launches,
+          "default_forward_convbr_routes": convbr_routes,
           "confidence_disp_vs_default_max_px": (disp_conf.float() - disp.float()).abs().max().item()})
     if not ok:
         raise AssertionError("main path output or launch counts wrong")
+
+    # The NDHWC kernels at every call of a KITTI and a Middlebury frame
+    # against their plain versions, bit for bit, and timed beside them.
+    ndhwc_check = {"kitti": ndhwc_frame_check(model, left, right, "kitti", card)}
+    md_rng = np.random.RandomState(4)
+    md_left, md_right = (torch.from_numpy(md_rng.randn(1, *MD_FRAME[:2], 3).astype(np.float32)).to(dev)
+                         for _ in range(2))
+    md_model = best_sceneflow_model(LEAStereoConfig(maxdisp=MD_FRAME[2], compute_dtype="bfloat16"), seed=0)
+    ndhwc_check["middlebury"] = ndhwc_frame_check(md_model, md_left, md_right, "middlebury", card)
+    del md_model, md_left, md_right
+    torch.cuda.empty_cache()
 
     # ---- 5. layers and device busy share
     with torch.inference_mode():
@@ -2057,7 +2210,11 @@ def main() -> int:
     # that the first design alone took before; kitti_forced_ms: a repitch
     # route forced on the KITTI volume the in-place route reads (phase 3).
     # library_ms is null for the heads: no one PyTorch call computes them;
-    # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel).
+    # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel). The
+    # NDHWC kernels: ms, library_ms and bound_ms summed over a KITTI frame's
+    # calls (middlebury_*: a Middlebury frame's), library_ms their plain
+    # versions' (phase 4's check frames); launches over phase 4's default
+    # forward.
     def shapes_of(route: str) -> dict:
         return {n: {k: r[k] for k in ("ms", "yardstick_ms", "bound_ms", "max_abs_err")}
                 for n, r in routes.items() if r["route"] == route}
@@ -2074,6 +2231,15 @@ def main() -> int:
                 "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches[name],
                 "fp32_frame_launches": fp32_frame_launches[name], **cli_of.get(name, {}), **train_of[name],
                 **par_of[name]}
+
+    def ndhwc_entry(name: str, path: str) -> dict:
+        kitti, md = ndhwc_check["kitti"][name], ndhwc_check["middlebury"][name]
+        return {"name": name, "route": "cuda", "source": SRC_NDHWC, "replaces": None,
+                "launches": ndhwc_launches[name], "launches_per_frame": ndhwc_launches[name] / default_frames,
+                "path": path, "max_abs_err": max(kitti["max_abs_diff"], md["max_abs_diff"]),
+                "ms": kitti["ms"], "plain_ms": kitti["library_ms"], "bound_ms": kitti["bound_ms"], "bound_by": "bytes",
+                "library_ms": kitti["library_ms"], "middlebury_ms": md["ms"], "middlebury_library_ms": md["library_ms"],
+                "middlebury_bound_ms": md["bound_ms"], "calls_per_frame": kitti["calls"]}
 
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
@@ -2111,6 +2277,9 @@ def main() -> int:
          "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"],
          "search_launches": search["launches"], "search_ms": search["ms"], "search_plain_ms": search["plain_ms"],
          "search_bound_ms": search["bound_ms"], "search_max_abs_err": search["err"], **par_of["band_soft_argmin"]},
+        ndhwc_entry("stem_ndhwc", "the eval matching net's stem, NDHWC (phase 4)"),
+        ndhwc_entry("cat_ndhwc", "the eval matching net's cell and skip concatenations (phase 4)"),
+        ndhwc_entry("resize_ndhwc", "the eval matching net's 3-D resizes, the last written NCDHW (phase 4)"),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.convbr import ConvBR
+from ..ops.layout import cat_channels
 from ..ops.resize import resize2d, resize3d, scale_dimension
 from ..parallel.halo import DispPartition
 from .genotypes import OP_CONV, OP_SKIP, Architecture
@@ -92,9 +93,7 @@ class FixedCell(nn.Module):
         if conv is None:
             return self._resize(x, size, part) if need_resize else x
         if need_resize and size[-1] > x.shape[-1] and not self.training:
-            weight, bias = conv.folded()
-            x = conv.conv_fn(x, weight.to(x.dtype), bias.to(x.dtype))
-            return torch.relu(self._resize(x, size, part))
+            return torch.relu(self._resize(conv.eval_conv(x, relu=False), size, part))
         if need_resize:
             x = self._resize(x, size, part)
         return conv(x)
@@ -134,4 +133,4 @@ class FixedCell(nn.Module):
                     new_states.append(op(h) if isinstance(op, nn.Identity) else op(h, part))
             offset += len(states)
             states.append(sum(new_states[1:], new_states[0]))
-        return prev_input, torch.cat(states[-self.block_multiplier :], dim=1)
+        return prev_input, cat_channels(states[-self.block_multiplier :])

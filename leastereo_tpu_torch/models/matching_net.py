@@ -15,6 +15,14 @@ volume's D planes, ``forward`` computes one rank's slab of every volume
 planes from the features, each level takes its own partition of that
 level's depth, and the 3x3x3 convolutions and resizes exchange the planes
 they need (``parallel/halo.py``), in eval and in training.
+
+Layout: in the eval, unsharded forward the volumes are NDHWC
+(``torch.channels_last_3d``; :meth:`MatchingNet.layout`) from the stem's
+output, which the fused stem writes so, to the last upsampling resize: every
+3-D ConvBR, concat and resize below follows its input's layout
+(``ops/convbr.py``, ``ops/layout.py``, ``ops/resize.py``), so cuDNN
+convolves in place, with no transposes; that last resize writes the NCDHW
+volume the head reads. Training and the sharded paths stay NCDHW throughout.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.nn as nn
 from ..ops.convbr import ConvBR
 from ..ops.cost_volume import build_cost_volume
 from ..ops.fused_stem import fused_cost_volume_stem
+from ..ops.layout import cat_channels
 from ..ops.resize import resize3d
 from ..parallel.halo import DispPartition
 from ..utils.tracing import span
@@ -62,14 +71,17 @@ class FusedStem0(ConvBR):
         num_disp: int,
         fused: bool = True,
         part: DispPartition | None = None,
+        memory_format: torch.memory_format = torch.contiguous_format,
     ):
-        """``part``: compute only rank ``part.rank``'s planes."""
+        """``part``: compute only rank ``part.rank``'s planes; unsharded, the
+        output is laid out as ``memory_format`` says (NCDHW or NDHWC)."""
         if fused and not self.training:
             weight, bias = self.folded()
             planes = None if part is None else (part.lo, part.hi)
-            return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True, planes=planes)
+            return fused_cost_volume_stem(left, right, weight, num_disp, bias=bias, relu=True, planes=planes,
+                                          memory_format=memory_format)
         if part is None:
-            return super().forward(build_cost_volume(left, right, num_disp))
+            return super().forward(build_cost_volume(left, right, num_disp)).contiguous(memory_format=memory_format)
         return self.haloed(build_cost_volume(left, right, num_disp, planes=(part.lo - 1, part.hi + 1)))
 
 
@@ -122,6 +134,11 @@ class MatchingNet(nn.Module):
             c = ifm
         self.last_3 = ConvBR(c, 1, 3, 1, 1, bn=False, relu=False, **kw)
 
+    def layout(self, part: DispPartition | None) -> torch.memory_format:
+        """The volumes' layout: NDHWC in the eval, unsharded forward, NCDHW
+        in training and on a slab of a sharded volume."""
+        return torch.channels_last_3d if not self.training and part is None else torch.contiguous_format
+
     def forward(
         self,
         left: torch.Tensor,
@@ -132,10 +149,11 @@ class MatchingNet(nn.Module):
     ) -> torch.Tensor:
         """NCHW features ``(B, C, h, w)`` of both views -> the pre-head volume
         ``(B, ifm, num_disp, h, w)`` (input of ``last_3``); with ``part`` (of
-        ``num_disp`` planes), rank ``part.rank``'s slab of it."""
+        ``num_disp`` planes), rank ``part.rank``'s slab of it. The result is
+        NCDHW-contiguous (module docstring)."""
         d, h, w = num_disp, left.shape[2], left.shape[3]
         with span("stem"):
-            stem0 = self.stem0(left, right, num_disp, fused=fused_stem, part=part)
+            stem0 = self.stem0(left, right, num_disp, fused=fused_stem, part=part, memory_format=self.layout(part))
         stem1 = self.stem1(stem0, part)
 
         concats: list[torch.Tensor] = []
@@ -149,13 +167,16 @@ class MatchingNet(nn.Module):
             parts.append(p_out)
             if i in self._skips:
                 src, name = self._skips[i]
-                concat = getattr(self, name)(torch.cat([concats[src], concat], dim=1), p_out)
+                concat = getattr(self, name)(cat_channels([concats[src], concat]), p_out)
             s0, s1 = prev_raw, concat
             p0, p1 = p1, p_out
 
         last, p_last = concats[-1], parts[-1]
         for lvl, div, conv in ((3, 4, "last_24"), (2, 2, "last_12"), (1, 1, "last_6")):
             if self.level >= lvl:
-                last = resize3d(getattr(self, conv)(last), (d // div, h // div, w // div), part=p_last)
+                # The last resize writes the NCDHW volume the head reads.
+                fmt = torch.contiguous_format if lvl == 1 else None
+                last = resize3d(getattr(self, conv)(last), (d // div, h // div, w // div), part=p_last,
+                                memory_format=fmt)
                 p_last = None if part is None else part.of_depth(d // div)
-        return last
+        return last.contiguous()

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 __all__ = [
     "load_kernels",
     "BUILD_DIR",
@@ -26,6 +28,9 @@ __all__ = [
     "band_smem_bytes",
     "head_sm90_entry_channels",
     "HEAD_SM90_ENTRIES",
+    "NDHWC_DTYPES",
+    "NDHWC_WORD",
+    "ndhwc_vec",
     "head_sm90_smem_bytes",
     "head_sm90_f32_stages",
     "head_sm90_f32_smem_bytes",
@@ -104,6 +109,20 @@ def head_sm90_f32_smem_bytes(channels: int, d: int) -> int:
     Above ``SMEM_LIMIT`` exactly when no stage fits."""
     stages = max(head_sm90_f32_stages(channels, d), 1)
     return stages * (4 * head_sm90_entry_channels(channels) * _SM90_F32_BOX + 16) + _sm90_f32_fixed(d)
+
+
+# Element types of the NDHWC kernels (csrc/ndhwc.cu), their ``dtype`` argument.
+NDHWC_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2, torch.float64: 3}
+NDHWC_WORD = 16  # bytes a thread of them moves when the channels fill whole words
+
+
+def ndhwc_vec(channels: int, *tensors: torch.Tensor) -> int:
+    """The ``vec`` argument of the NDHWC kernels: a 16-byte word of channels
+    a thread where ``channels`` fill whole words and every tensor's base is
+    word-aligned, else 1."""
+    es = tensors[0].element_size()
+    whole = channels * es % NDHWC_WORD == 0 and all(t.data_ptr() % NDHWC_WORD == 0 for t in tensors)
+    return NDHWC_WORD // es if whole else 1
 
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
@@ -185,6 +204,13 @@ def load_kernels() -> ctypes.CDLL:
     for entry in HEAD_SM90_ENTRIES:
         getattr(lib, entry).argtypes = [p, p, p, i, i, i, i, i, i, p]
         getattr(lib, entry).restype = i
+    dbl = ctypes.c_double
+    lib.lst_resize_ndhwc.argtypes = [p, p, i, i, i, i, i, i, i, i, i, i, i, dbl, dbl, dbl, p]
+    lib.lst_resize_ndhwc.restype = i
+    lib.lst_stem_ndhwc.argtypes = [p, p, p, p, p, *[i] * 15, p]
+    lib.lst_stem_ndhwc.restype = i
+    lib.lst_cat_ndhwc.argtypes = [ctypes.POINTER(p), ctypes.POINTER(i), i, p, i, i, ctypes.c_longlong, p]
+    lib.lst_cat_ndhwc.restype = i
     # The gates decide with the formulas above: hold them to the built layout
     # (padded and grouped C, and D the deepest fp32 ring tests, included) so
     # a gate never admits a shape the kernel cannot launch.

@@ -11,6 +11,18 @@ affine is folded into the kernel in float32 (``w = scale / sqrt(var + eps)``)
 and the bias rides the convolution's epilogue, then the folded kernel is cast
 once to the input dtype (``convbr.py:102-107`` of the JAX package).
 
+Layout: a 3-D eval ConvBR follows its input's memory format. Given an NDHWC
+(``torch.channels_last_3d``) volume, the folded kernel is cast and laid out
+NDHWC in the one copy that casts it, so cuDNN reads and writes the volumes in
+place, without transposing either; on the card, with a bias and a ReLU, the
+whole ConvBR is one cuDNN call whose epilogue adds the bias and applies the
+ReLU (``torch.cudnn_convolution_relu``; a compiler traces it as the custom
+op ``torch.ops.leastereo.conv_bias_relu``, which cuDNN's op cannot be traced
+as; a shape cuDNN has no fused engine for raises). :attr:`ConvBR.eval_routes`
+counts the 3-D eval convolutions by route: ``ndhwc_fused``, ``ndhwc`` (the
+convolution, then the ReLU pass, if any: no ReLU or bias, float64, or the
+CPU) and ``ncdhw``.
+
 Parallel runs: with ``bn_group`` set (:func:`set_bn_group`), train-mode BN
 normalises with the statistics of the global batch over that group
 (sync-BN, as flax computes them under GSPMD). Given a
@@ -30,8 +42,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.halo import DispPartition, halo
+from ..utils.tracing import compiler_tracing
+from .layout import is_ndhwc
 
-__all__ = ["ConvBR", "fold_bn", "set_bn_group"]
+__all__ = ["ConvBR", "conv_bias_relu", "conv_bias_relu_cudnn", "fold_bn", "set_bn_group"]
+
+# The types of the fused route's cuDNN engines; a float64 volume takes the
+# unfused NDHWC route.
+_FUSED_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
 def fold_bn(bn: nn.modules.batchnorm._BatchNorm) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,6 +87,9 @@ class ConvBR(nn.Module):
         self.bn = bn_cls(out_channels, eps=1e-5, momentum=0.1) if bn else None
         self.relu = relu
         self.bn_group = None  # process group of the train-mode BN statistics
+
+    # Calls of the 3-D eval convolution (:meth:`eval_conv`) by route.
+    eval_routes = dict.fromkeys(("ndhwc_fused", "ndhwc", "ncdhw"), 0)
 
     def conv_fn(
         self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, depth_pad: bool = True
@@ -142,9 +163,55 @@ class ConvBR(nn.Module):
     def _conv_bn(self, x: torch.Tensor, depth_pad: bool) -> torch.Tensor:
         if self.training:
             return self.post(self.conv_fn(x, self.conv.weight.to(x.dtype), None, depth_pad))
+        return self.eval_conv(x, self.relu, depth_pad)
+
+    def eval_conv(self, x: torch.Tensor, relu: bool, depth_pad: bool = True) -> torch.Tensor:
+        """The eval-mode conv with BN folded in, its bias in the convolution's
+        epilogue, then the ReLU if ``relu``. A 3-D convolution keeps the
+        layout of ``x`` (module docstring) and counts its route."""
         weight, bias = self.folded()
-        x = self.conv_fn(x, weight.to(x.dtype), None if bias is None else bias.to(x.dtype), depth_pad)
-        return torch.relu(x) if self.relu else x
+        bias = None if bias is None else bias.to(x.dtype)
+        if not is_ndhwc(x):
+            if weight.ndim == 5:
+                ConvBR.eval_routes["ncdhw"] += 1
+            x = self.conv_fn(x, weight.to(x.dtype), bias, depth_pad)
+            return torch.relu(x) if relu else x
+        weight = weight.to(x.dtype, memory_format=torch.channels_last_3d)
+        if relu and bias is not None and x.is_cuda and x.dtype in _FUSED_DTYPES:
+            padding = list(self.conv.padding if depth_pad else (0, *self.conv.padding[1:]))
+            stride = list(self.conv.stride)
+            ConvBR.eval_routes["ndhwc_fused"] += 1
+            if compiler_tracing():
+                return torch.ops.leastereo.conv_bias_relu(x, weight, bias, stride, padding)
+            return conv_bias_relu_cudnn(x, weight, bias, stride, padding)
+        ConvBR.eval_routes["ndhwc"] += 1
+        # Some CPU convolutions return NCDHW: keep the volume NDHWC.
+        x = self.conv_fn(x, weight, bias, depth_pad).contiguous(memory_format=torch.channels_last_3d)
+        return torch.relu(x) if relu else x
+
+
+def conv_bias_relu_cudnn(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride: list[int],
+                         padding: list[int]) -> torch.Tensor:
+    """``relu(conv3d(x, weight, bias))`` as one cuDNN call whose epilogue adds
+    the bias and applies the ReLU (``torch.cudnn_convolution_relu``), NDHWC
+    in and out: the fused route of :meth:`ConvBR.eval_conv`."""
+    return torch.cudnn_convolution_relu(x, weight, bias, stride, padding, [1] * len(stride), 1)
+
+
+@torch.library.custom_op("leastereo::conv_bias_relu", mutates_args=(), device_types="cuda")
+def conv_bias_relu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride: list[int],
+                   padding: list[int]) -> torch.Tensor:
+    """``torch.ops.leastereo.conv_bias_relu``: :func:`conv_bias_relu_cudnn`
+    as a traced graph (``torch.export``) holds it, which cuDNN's op cannot
+    be traced as; the eager forward calls cuDNN itself."""
+    return conv_bias_relu_cudnn(x, weight, bias, stride, padding)
+
+
+@conv_bias_relu.register_fake
+def _conv_bias_relu_fake(x, weight, bias, stride, padding):
+    size = [(n + 2 * p - k) // s + 1 for n, p, k, s in zip(x.shape[2:], padding, weight.shape[2:], stride)]
+    return torch.empty((x.shape[0], weight.shape[0], *size), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last_3d)
 
 
 def set_bn_group(module: nn.Module, group) -> None:

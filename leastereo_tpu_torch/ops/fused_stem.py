@@ -25,7 +25,12 @@ PyTorch would be hundreds of small launches. Here the assembly is vectorised:
 both halves are one ``index_select`` each from small tables of 2-D maps, with
 index tensors over ``(d, h, w)``, written straight into the NCDHW output.
 The volume never exists. Not a kernel of the TPU build either: it stays
-PyTorch (cuDNN 2-D convs plus gathers).
+PyTorch (cuDNN 2-D convs plus gathers). An NDHWC output
+(``memory_format=torch.channels_last_3d``, the eval matching net's) comes
+from tables of ``F``-channel rows: on the card one kernel
+(:func:`stem_ndhwc_cuda`) writes it, with the fix, the bias and the ReLU,
+where PyTorch's gather of 64-byte rows takes a block a row; elsewhere the
+NCDHW output, then one conversion.
 """
 
 from __future__ import annotations
@@ -33,9 +38,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_cost_volume_stem"]
+from ..utils.tracing import compiler_tracing
+from . import _build
+
+__all__ = ["fused_cost_volume_stem", "stem_ndhwc_cuda"]
 
 _N_CLASSES = 6  # diagonal classes j <= -3, -2, -1, 0, 1, >= 2
+# The depth taps inside [0, D) at a plane that is neither end, the first,
+# the last, or both (D = 1): the kernel's plane categories.
+_CATEGORY_TAPS = ((0, 1, 2), (1, 2), (0, 1), (1,))
 
 
 def _by_kd(wt: torch.Tensor) -> torch.Tensor:
@@ -60,6 +71,7 @@ def fused_cost_volume_stem(
     bias: torch.Tensor | None = None,
     relu: bool = False,
     planes: tuple[int, int] | None = None,
+    memory_format: torch.memory_format = torch.contiguous_format,
 ) -> torch.Tensor:
     """``conv3d(build_cost_volume(left, right, num_disp), kernel, padding=1)``
     without materialising the volume.
@@ -74,9 +86,11 @@ def fused_cost_volume_stem(
         disparity-sharded volume); default all ``D``. The neighbour planes
         the depth taps read come from the features here, with no exchange,
         and the volume is zero beyond ``[0, D)``.
+      memory_format: of the output: ``torch.contiguous_format`` (NCDHW) or
+        ``torch.channels_last_3d`` (NDHWC); the same values either way.
 
     Returns:
-      NCDHW ``(B, F, hi - lo, H, W)``.
+      ``(B, F, hi - lo, H, W)``.
     """
     b, c, h, w = left.shape
     f = kernel.shape[0]
@@ -121,11 +135,33 @@ def fused_cost_volume_stem(
         g = [cr[:, kd, :, :, 4 - kd : 4 - kd + w + nd - 1] for kd in v]
         right_maps.append(sum(g[1:], g[0]))
     wg = w + nd - 1
+    if memory_format not in (torch.contiguous_format, torch.channels_last_3d):
+        raise ValueError(f"memory_format {memory_format}: the stem writes NCDHW or NDHWC")
+
+    # Right-edge fix: at w = W-1 the kw = +1 tap read R[u], u = W+1-d-kd,
+    # where the volume holds its zero column w' = W.
+    dd = torch.arange(lo, hi, device=dev)
+    fix = None
+    for kd in range(3):
+        u = w + 1 - kd - dd
+        ok = (u >= 0) & (u < w) & (dd + kd - 1 >= 0) & (dd + kd - 1 < nd)
+        term = corr[:, kd].index_select(3, u.clamp(0, w - 1)) * ok.to(left.dtype)
+        fix = term if fix is None else fix + term  # (B, F, H, planes)
+
+    # An NDHWC output on the card: the kernel, from tables of F-channel rows
+    # (B, T*6*H*W, F), (B, T*H*wg, F). A compiler traces the PyTorch ops
+    # below, whose result is the kernel's.
+    if memory_format == torch.channels_last_3d and left.is_cuda and not compiler_tracing():
+        left_tab = torch.stack([m.permute(0, 2, 3, 1) for m in left_maps], dim=1).reshape(b, -1, f)
+        right_tab = torch.stack([m.permute(0, 2, 3, 1) for m in right_maps], dim=1).reshape(b, -1, f)
+        out = stem_ndhwc_cuda(left_tab, right_tab, fix.permute(0, 3, 2, 1).contiguous(), bias, relu,
+                              valid_sets, (lo, hi), nd, h, w)
+        return out.permute(0, 4, 1, 2, 3)
+
     left_tab = torch.stack(left_maps, dim=2).reshape(b, f, -1)  # (B, F, T*6*H*W)
     right_tab = torch.stack(right_maps, dim=2).reshape(b, f, -1)  # (B, F, T*H*wg)
-
     pt = torch.tensor(ptype, device=dev).view(-1, 1, 1)
-    dd = torch.arange(lo, hi, device=dev).view(-1, 1, 1)
+    dd = dd.view(-1, 1, 1)
     hh = torch.arange(h, device=dev).view(1, h, 1)
     ww = torch.arange(w, device=dev).view(1, 1, w)
     cls = (ww - dd + 3).clamp(0, _N_CLASSES - 1)
@@ -134,19 +170,54 @@ def fused_cost_volume_stem(
     out = left_tab.index_select(2, idx_left.reshape(-1))
     out += right_tab.index_select(2, idx_right.reshape(-1))
     out = out.view(b, f, hi - lo, h, w)
-
-    # Right-edge fix: at w = W-1 the kw = +1 tap read R[u], u = W+1-d-kd,
-    # where the volume holds its zero column w' = W.
-    fix = None
-    for kd in range(3):
-        u = w + 1 - kd - dd.view(-1)
-        ok = (u >= 0) & (u < w) & (dd.view(-1) + kd - 1 >= 0) & (dd.view(-1) + kd - 1 < nd)
-        term = corr[:, kd].index_select(3, u.clamp(0, w - 1)) * ok.to(left.dtype)
-        fix = term if fix is None else fix + term
     out[..., w - 1] -= fix.permute(0, 1, 3, 2)
 
     if bias is not None:
         out += bias.to(out.dtype).view(1, f, 1, 1, 1)
     if relu:
         out.relu_()
+    return out.contiguous(memory_format=memory_format)
+
+
+def stem_ndhwc_cuda(
+    left_tab: torch.Tensor,
+    right_tab: torch.Tensor,
+    fix: torch.Tensor,
+    bias: torch.Tensor | None,
+    relu: bool,
+    valid_sets: list[tuple[int, ...]],
+    planes: tuple[int, int],
+    num_disp: int,
+    h: int,
+    w: int,
+) -> torch.Tensor:
+    """Kernel ``lst_stem_ndhwc`` (``csrc/ndhwc.cu``): the NDHWC stem output
+    ``(B, planes, H, W, F)``, contiguous, assembled from the tables of
+    :func:`fused_cost_volume_stem` (``left_tab`` ``(B, T*6*H*W, F)``,
+    ``right_tab`` ``(B, T*H*(W+D-1), F)``, ``valid_sets`` their T plane
+    types), the right-edge ``fix`` ``(B, planes, H, F)``, the ``bias`` and the
+    ReLU, bit for bit as that function's PyTorch ops assemble it (its plain
+    version, which runs on the CPU). ``.launches`` counts the launches."""
+    b, _, f = left_tab.shape
+    lo, hi = planes
+    dtype = left_tab.dtype
+    if left_tab.device.type != "cuda" or dtype not in _build.NDHWC_DTYPES:
+        raise ValueError(f"the NDHWC stem takes CUDA tables of {sorted(map(str, _build.NDHWC_DTYPES))}, "
+                         f"got {dtype} on {left_tab.device}")
+    bias = None if bias is None else bias.to(dtype).contiguous()
+    tensors = [t.contiguous() for t in (left_tab, right_tab, fix)]
+    out = torch.empty((b, hi - lo, h, w, f), dtype=dtype, device=left_tab.device)
+    vec = _build.ndhwc_vec(f, *tensors, out, *([] if bias is None else [bias]))
+    types = [valid_sets.index(t) if t in valid_sets else 0 for t in _CATEGORY_TAPS]
+    lib = _build.load_kernels()
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    with torch.cuda.device(out.device):
+        err = lib.lst_stem_ndhwc(*(t.data_ptr() for t in tensors), None if bias is None else bias.data_ptr(),
+                                 out.data_ptr(), _build.NDHWC_DTYPES[dtype], vec, b, f, hi - lo, h, w, lo, num_disp,
+                                 len(valid_sets), *types, int(relu), stream)
+    _build.check(err, "NDHWC stem kernel")
+    stem_ndhwc_cuda.launches += 1
     return out
+
+
+stem_ndhwc_cuda.launches = 0

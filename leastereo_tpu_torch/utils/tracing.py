@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-__all__ = ["trace", "span", "enable", "disable", "reset", "records", "totals", "SpanRecord", "PREFIX"]
+__all__ = ["trace", "span", "compiler_tracing", "enable", "disable", "reset", "records", "totals", "SpanRecord", "PREFIX"]
 
 PREFIX = "leastereo."  # of every span's range in a profiler trace
 
@@ -93,11 +93,16 @@ class _Span:
         return False
 
 
+def compiler_tracing() -> bool:
+    """Whether ``torch.compile`` or ``torch.export`` is tracing the caller."""
+    return torch.compiler.is_compiling() or torch.compiler.is_exporting()
+
+
 def span(name: str):
     """A context manager marking one layer boundary named ``name`` (module
     docstring): the shared ``nullcontext`` while the recorder is off or a
     compiler traces."""
-    if not _on or torch.compiler.is_compiling() or torch.compiler.is_exporting():
+    if not _on or compiler_tracing():
         return _OFF
     return _Span(name)
 

@@ -14,9 +14,13 @@ once per frame, a search weight step and an arch step launch the band
 kernel once each, and remat gives the search step's loss, gradients and
 running statistics without it; the disparity-sharded resize reproduces
 ``F.interpolate`` bit for bit, and the sharded forward on a one-shard
-partition equals the unsharded plain-head forward bit for bit. Every test
-skips without a CUDA card. This file imports neither JAX
-nor the JAX package, so it runs where JAX is not installed:
+partition equals the unsharded plain-head forward (volumes NCDHW) bit for
+bit; the NDHWC kernels equal their PyTorch versions (the resize
+``F.interpolate``, the stem assembly its ops, the concat ``torch.cat``), the
+fused cuDNN epilogue stays within bf16 rounding, and a KITTI frame's
+matching net runs NDHWC throughout and hands the head an NCDHW volume.
+Every test skips without a CUDA card. This file imports neither JAX nor the
+JAX package, so it runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -352,6 +356,20 @@ def test_ops_pass_opcheck_on_card(dev, dtype):
     torch.library.opcheck(torch.ops.leastereo.band_soft_argmin.default, (cost, 24))
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ndhwc_ops_pass_opcheck_on_card(dev, dtype):
+    """The custom ops a traced eval matching net holds, on NDHWC CUDA
+    volumes: the resize (either output layout) and the fused convolution."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cl = torch.channels_last_3d
+    x = torch.randn(1, 16, 4, 6, 8, generator=gen, device=dev).to(dtype).contiguous(memory_format=cl)
+    for ncdhw in (False, True):
+        torch.library.opcheck(torch.ops.leastereo.resize3d_ndhwc.default, (x, [7, 11, 15], ncdhw))
+    w = (0.2 * torch.randn(8, 16, 3, 3, 3, generator=gen, device=dev)).to(dtype, memory_format=cl)
+    b = torch.randn(8, generator=gen, device=dev).to(dtype)
+    torch.library.opcheck(torch.ops.leastereo.conv_bias_relu.default, (x, w, b, [1, 1, 1], [1, 1, 1]))
+
+
 def test_band_op_raises_on_refused_cost(dev):
     """The op's CUDA implementation keeps the wrapper's gate: no plain fallback."""
     n = soft_argmin_cuda.launches
@@ -453,10 +471,14 @@ def test_sharded_resize_is_interpolate_bit_for_bit(dev, src, dst):
 
 
 @pytest.mark.parametrize("maxdisp", [48, 408])
-def test_sharded_forward_on_one_shard_is_unsharded(dev, maxdisp):
+def test_sharded_forward_on_one_shard_is_unsharded(dev, maxdisp, monkeypatch):
     """``cost_volume_pspec`` without a mesh runs the slab path on one shard:
     halo-padded convolutions, the sharded resize and head, no head kernel.
-    In fp32 it equals the plain-head forward bit for bit."""
+    In fp32 it equals bit for bit the plain-head forward whose volumes stay
+    NCDHW, as the slab's do, and the NDHWC one within the fp32 tolerance
+    (cuDNN's NDHWC convolutions sum in another order)."""
+    from leastereo_tpu_torch.models.matching_net import MatchingNet
+
     rng = np.random.RandomState(0)
     left, right = (torch.from_numpy(rng.randn(1, 96, 192, 3).astype(np.float32)).to(dev) for _ in range(2))
     plain = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="float32", pallas_head=False))
@@ -465,6 +487,215 @@ def test_sharded_forward_on_one_shard_is_unsharded(dev, maxdisp):
     sharded.load_state_dict(plain.state_dict())
     counts = (conv_soft_argmin_sm90.launches, conv_soft_argmin_sm90_f32.launches, soft_argmin_cuda.launches)
     with torch.inference_mode():
-        want, got = plain(left, right), sharded(left, right)
+        ndhwc, got = plain(left, right), sharded(left, right)
+        monkeypatch.setattr(MatchingNet, "layout", lambda self, part: torch.contiguous_format)
+        want = plain(left, right)
     assert (conv_soft_argmin_sm90.launches, conv_soft_argmin_sm90_f32.launches, soft_argmin_cuda.launches) == counts
     assert torch.isfinite(got).all() and torch.equal(got, want)
+    assert (ndhwc - want).abs().max().item() < TOL_PX
+
+
+# (C, source DHW, output DHW) of the NDHWC resize kernel: the matching net's
+# resizes at a KITTI frame (downsampling by 2 and upsampling to 1/3
+# resolution, C in {8, 16, 32, 64}), odd and ragged sizes, and C = 3 (no
+# 16-byte words: one element a thread).
+NDHWC_RESIZES = [(32, (64, 128, 416), (32, 64, 208)), (64, (32, 64, 208), (16, 32, 104)),
+                 (16, (16, 32, 104), (32, 64, 208)), (8, (32, 64, 208), (64, 128, 416)),
+                 (32, (17, 16, 52), (34, 32, 104)), (32, (9, 8, 10), (5, 4, 5)), (3, (5, 6, 7), (9, 11, 13))]
+# The kernel's arithmetic is PyTorch's trilinear kernel's: bf16 and fp32
+# agree bit for bit. fp16 and fp64 are held to a last-bit tolerance (the
+# two compilations may contract other products into FMAs).
+RESIZE_TOL = {torch.float16: dict(rtol=2 ** -10, atol=1e-6), torch.float64: dict(rtol=1e-12, atol=1e-12)}
+
+
+@pytest.mark.parametrize("ncdhw_out", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c,src,dst", NDHWC_RESIZES)
+def test_ndhwc_resize_kernel(dev, c, src, dst, dtype, ncdhw_out):
+    """``lst_resize_ndhwc`` equals ``F.interpolate`` on the NCDHW volume bit
+    for bit, in either output layout; one launch a call."""
+    from leastereo_tpu_torch.ops.layout import is_ndhwc
+    from leastereo_tpu_torch.ops.resize import resize3d, resize3d_ndhwc_cuda
+
+    x = torch.randn(1, c, *src, generator=torch.Generator(device=dev).manual_seed(1), device=dev).to(dtype)
+    want = torch.nn.functional.interpolate(x, size=dst, mode="trilinear", align_corners=True)
+    fmt = torch.contiguous_format if ncdhw_out else torch.channels_last_3d
+    n = resize3d_ndhwc_cuda.launches
+    got = resize3d(x.contiguous(memory_format=torch.channels_last_3d), dst, memory_format=fmt)
+    torch.cuda.synchronize()
+    assert resize3d_ndhwc_cuda.launches == n + 1
+    assert got.is_contiguous() if ncdhw_out else is_ndhwc(got)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_ndhwc_resize_kernel_types_and_unaligned_base(dev, dtype):
+    """fp16 and fp64 volumes, and a volume whose base is not 16-byte aligned
+    (one element a thread)."""
+    from leastereo_tpu_torch.ops.resize import resize3d_ndhwc_cuda
+
+    c, src, dst = 16, (9, 20, 36), (17, 39, 71)
+    x = torch.randn(1, c, *src, generator=torch.Generator(device=dev).manual_seed(2), device=dev).to(dtype)
+    cl = x.contiguous(memory_format=torch.channels_last_3d)
+    flat = torch.empty(cl.numel() + 1, dtype=dtype, device=dev)
+    shifted = flat[1:].view(1, *src, c).permute(0, 4, 1, 2, 3)
+    shifted.copy_(cl)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous(memory_format=torch.channels_last_3d)
+    want = torch.nn.functional.interpolate(x, size=dst, mode="trilinear", align_corners=True)
+    for vol in (cl, shifted):
+        for fmt in (torch.channels_last_3d, torch.contiguous_format):
+            torch.testing.assert_close(resize3d_ndhwc_cuda(vol, dst, fmt), want, **RESIZE_TOL[dtype])
+
+
+@pytest.mark.parametrize("cin,cout,k,dhw", [(32, 32, 3, (64, 128, 416)), (16, 16, 3, (32, 64, 208)),
+                                            (8, 8, 3, (64, 128, 416)), (64, 16, 1, (32, 64, 208))])
+def test_convbr_fused_epilogue(dev, cin, cout, k, dhw):
+    """A bf16 eval ConvBR at the KITTI frame's shapes: the fused route (one
+    cuDNN call, bias and ReLU in its epilogue), the unfused NDHWC route and
+    the NCDHW route each within bf16 rounding of the float64 result on the
+    same bf16 input and kernel: one rounding fused, two (the convolution's,
+    then the bias add's) otherwise."""
+    from leastereo_tpu_torch.ops.convbr import ConvBR
+    from leastereo_tpu_torch.ops.layout import is_ndhwc
+
+    gen = torch.Generator().manual_seed(3)
+    conv = ConvBR(cin, cout, k, 1, k // 2, ndim=3, generator=gen).to(dev).eval()
+    conv.bn.running_mean.normal_(0, 0.3)
+    conv.bn.running_var.uniform_(0.5, 2.0)
+    conv.bn.bias.data.normal_(0, 0.3)
+    x = torch.relu(torch.randn(1, cin, *dhw, device=dev)).to(torch.bfloat16)
+    xc = x.contiguous(memory_format=torch.channels_last_3d)
+    weight, bias = conv.folded()
+    w16, b16 = weight.to(torch.bfloat16), bias.to(torch.bfloat16)
+    pre = torch.nn.functional.conv3d(x.double(), w16.double(), padding=k // 2)
+    exact = torch.relu(pre + b16.double().view(1, -1, 1, 1, 1))
+    before = dict(ConvBR.eval_routes)
+    with torch.inference_mode():
+        fused = conv(xc)
+        unfused = torch.relu(conv.eval_conv(xc, relu=False))
+        ncdhw = conv(x)
+    assert {r: v - before[r] for r, v in ConvBR.eval_routes.items()} == {"ndhwc_fused": 1, "ndhwc": 1, "ncdhw": 1}
+    assert is_ndhwc(fused) and is_ndhwc(unfused) and ncdhw.is_contiguous()
+    scale = exact.abs().max().item()
+    for got, rounds_sum in ((fused, False), (unfused, True), (ncdhw, True)):
+        err = (got.double() - exact).abs()
+        # A bf16 rounding moves a value by at most 2^-9 of it (bound: twice
+        # that): of the result, and on the unfused routes first of the sum
+        # before the bias; the fp32 sums are exact to far less.
+        bound = 2 ** -8 * (exact.abs() + pre.abs() * rounds_sum) + 1e-5 * scale
+        assert (err <= bound).all(), err.max().item()
+
+
+def _informative_state(dev, seed):
+    """BEST_SCENEFLOW's weights at maxdisp 192 from ``seed``, its BN
+    statistics those of one seeded frame (a float32 train-mode pass with
+    momentum 1) and ``last_3`` scaled so the cost spans a few units: a net
+    whose disparity follows its volume, where a fresh init's costs are flat."""
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"), device=dev, seed=seed)
+    rng = np.random.RandomState(seed)
+    left, right = (torch.from_numpy(rng.randn(1, 192, 624, 3).astype(np.float32)).to(dev) for _ in range(2))
+    for m in model.modules():
+        if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+            m.momentum = 1.0
+    with torch.no_grad():
+        model.train()(left, right)
+        model.eval()
+        feats = model.feature(torch.cat([left, right]).permute(0, 3, 1, 2))
+        cost = model.matching.last_3(model.matching(feats[:1], feats[1:], 64))
+        model.matching.last_3.conv.weight.mul_(3.0 / cost.std())
+    return model.state_dict()
+
+
+def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
+    """A KITTI-shaped bf16 frame: the stem written NDHWC by its kernel, every
+    3-D eval ConvBR of the matching net (its 75 3x3x3 and 25 1x1x1
+    convolutions) on an NDHWC route, its 17 resizes and 14 concatenations in
+    the NDHWC kernels, the fused head launched once on a contiguous NCDHW
+    volume. The float32 frame (TF32 off) whose volumes stay NDHWC is within
+    ``TOL_PX`` of the one whose volumes stay NCDHW throughout: only cuDNN's
+    summation order differs between them."""
+    import leastereo_tpu_torch.models.leastereo as lst
+    from leastereo_tpu_torch.models.matching_net import MatchingNet
+    from leastereo_tpu_torch.ops.convbr import ConvBR
+    from leastereo_tpu_torch.ops.fused_stem import stem_ndhwc_cuda
+    from leastereo_tpu_torch.ops.layout import cat_ndhwc_cuda
+    from leastereo_tpu_torch.ops.resize import resize3d_ndhwc_cuda
+
+    state = _informative_state(dev, seed=4)
+    model = best_sceneflow_model(LEAStereoConfig(maxdisp=192), device=dev)
+    model.load_state_dict(state)
+    rng = np.random.RandomState(4)
+    left, right = (torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
+    vols, head = [], lst.conv_soft_argmin_fused
+    monkeypatch.setattr(lst, "conv_soft_argmin_fused", lambda vol, k, m: vols.append(vol) or head(vol, k, m))
+    kernels = (conv_soft_argmin_sm90, resize3d_ndhwc_cuda, stem_ndhwc_cuda, cat_ndhwc_cuda)
+
+    def routes_of(fn):
+        before = dict(ConvBR.eval_routes)
+        out = fn()
+        return out, {r: v - before[r] for r, v in ConvBR.eval_routes.items()}
+
+    launches = [f.launches for f in kernels]
+    with torch.inference_mode():
+        got, delta = routes_of(lambda: model(left, right))
+        torch.cuda.synchronize()
+        # The 7 conv-then-resize projections (models/cells.py) apply their ReLU after the resize.
+        assert delta == {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
+        assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 17, 1, 14]
+        assert len(vols) == 1 and vols[0].shape == (1, 32, 64, 128, 416) and vols[0].is_contiguous()
+        assert torch.isfinite(got).all()
+        model32 = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"), device=dev)
+        model32.load_state_dict(state)
+        got32, delta = routes_of(lambda: model32(left, right))
+        assert delta == {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
+        monkeypatch.setattr(MatchingNet, "layout", lambda self, part: torch.contiguous_format)
+        want32, delta = routes_of(lambda: model32(left, right))
+        assert delta == {"ndhwc_fused": 0, "ndhwc": 0, "ncdhw": 100}
+    gap = (got32 - want32).abs()
+    print(f"float32 NDHWC vs NCDHW frame: mean {gap.mean().item():.3e} px, max {gap.max().item():.3e} px")
+    assert gap.max().item() < TOL_PX
+
+
+# (b, h, w, c, f, num_disp, planes) of the NDHWC stem kernel: the fused stem
+# test's cases (D == w, D = 1, D > w), a slab of planes, F = 6 (no 16-byte
+# words) and a KITTI frame's stem (1/3 resolution, 32 features).
+STEM_CASES = [(1, 8, 12, 4, 8, 5, None), (2, 6, 9, 3, 16, 9, None), (1, 4, 6, 2, 8, 1, None),
+              (1, 4, 6, 2, 8, 10, (3, 8)), (1, 5, 7, 3, 6, 4, None), (1, 128, 416, 32, 32, 64, None)]
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,h,w,c,f,num_disp,planes", STEM_CASES)
+def test_stem_ndhwc_kernel(dev, b, h, w, c, f, num_disp, planes, dtype, epilogue):
+    """``lst_stem_ndhwc`` writes the fused stem's NDHWC output bit for bit as
+    the PyTorch ops of its NCDHW output; one launch a call."""
+    from leastereo_tpu_torch.ops.layout import is_ndhwc
+    from leastereo_tpu_torch.ops.fused_stem import fused_cost_volume_stem, stem_ndhwc_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    left, right = (torch.randn(b, c, h, w, generator=gen, device=dev).to(dtype) for _ in range(2))
+    kernel = 0.2 * torch.randn(f, 2 * c, 3, 3, 3, generator=gen, device=dev)
+    bias = torch.randn(f, generator=gen, device=dev) if epilogue else None
+    kw = dict(bias=bias, relu=epilogue, planes=planes)
+    want = fused_cost_volume_stem(left, right, kernel, num_disp, **kw)
+    n = stem_ndhwc_cuda.launches
+    got = fused_cost_volume_stem(left, right, kernel, num_disp, memory_format=torch.channels_last_3d, **kw)
+    torch.cuda.synchronize()
+    assert stem_ndhwc_cuda.launches == n + 1 and is_ndhwc(got)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("channels", [(8, 8, 8, 8), (16, 16, 16, 16), (32, 32, 32, 32), (32, 64), (3, 5, 8)])
+def test_cat_ndhwc_kernel(dev, channels, dtype):
+    """``lst_cat_ndhwc`` joins NDHWC volumes as ``torch.cat`` does, bit for
+    bit (3 and 5 channels: one element a thread); one launch a call."""
+    from leastereo_tpu_torch.ops.layout import cat_channels, cat_ndhwc_cuda, is_ndhwc
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    xs = [torch.randn(2, c, 5, 12, 33, generator=gen, device=dev).to(dtype) for c in channels]
+    n = cat_ndhwc_cuda.launches
+    got = cat_channels([x.contiguous(memory_format=torch.channels_last_3d) for x in xs])
+    torch.cuda.synchronize()
+    assert cat_ndhwc_cuda.launches == n + 1 and is_ndhwc(got)
+    assert torch.equal(got, torch.cat(xs, dim=1))

@@ -25,6 +25,11 @@ from leastereo_tpu.models.feature_net import FeatureNet as JaxFeatureNet
 from leastereo_tpu.models.genotypes import BEST_SCENEFLOW as JAX_BEST
 from leastereo_tpu.utils.torch_convert import import_torch_state_dict
 from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+from leastereo_tpu_torch.models import BEST_SCENEFLOW, Architecture
+from leastereo_tpu_torch.models.matching_net import DEFAULT_SKIPS, MatchingNet
+from leastereo_tpu_torch.ops.convbr import ConvBR
+from leastereo_tpu_torch.ops.layout import is_ndhwc
+from leastereo_tpu_torch.parallel import DispPartition
 from leastereo_tpu_torch.utils.weights import state_dict_from_jax
 
 H, W, MAXDISP = 48, 96, 48
@@ -169,3 +174,79 @@ def test_port_imports_no_jax():
     repo = pathlib.Path(__file__).resolve().parents[1]
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=repo)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# The matching net's eval volumes NDHWC against NCDHW: BEST_SCENEFLOW's path
+# (both benchmark configurations') at even, odd and mixed (D, h, w), and a
+# path to level 3 (the last_24 and last_12 heads too), without skips.
+_DEEP = Architecture((1, 2, 3, 3, 2, 3), BEST_SCENEFLOW["matching"].cell_genotype)
+MATCHING_CASES = [(BEST_SCENEFLOW["matching"], DEFAULT_SKIPS, (16, 16, 32)),
+                  (BEST_SCENEFLOW["matching"], DEFAULT_SKIPS, (9, 7, 17)),
+                  (BEST_SCENEFLOW["matching"], DEFAULT_SKIPS, (17, 10, 15)),
+                  (_DEEP, (), (16, 17, 12))]
+
+
+def _matching_net(arch, skips, seed=0):
+    """A matching net in eval mode whose BN statistics and affines are off their init."""
+    net = MatchingNet(arch, 32, skips=skips, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    for m in net.modules():
+        if isinstance(m, torch.nn.BatchNorm3d):
+            c = m.num_features
+            m.weight.data.mul_(1 + 0.2 * torch.randn(c, generator=gen))
+            m.bias.data.add_(0.1 * torch.randn(c, generator=gen))
+            m.running_mean.add_(0.1 * torch.randn(c, generator=gen))
+            m.running_var.mul_(torch.exp(0.3 * torch.randn(c, generator=gen)))
+    return net.eval()
+
+
+def _route_delta(before):
+    return {k: v - before[k] for k, v in ConvBR.eval_routes.items()}
+
+
+@pytest.mark.parametrize("arch,skips,dhw", MATCHING_CASES)
+def test_ndhwc_matching_net_matches_ncdhw(monkeypatch, arch, skips, dhw):
+    """The eval forward runs every 3-D ConvBR on NDHWC volumes and returns an
+    NCDHW volume equal, in float32, to the forward that keeps NCDHW throughout
+    (``layout`` forced), which runs as many convolutions, all NCDHW."""
+    d, h, w = dhw
+    net = _matching_net(arch, skips)
+    rng = np.random.RandomState(9)
+    left, right = (torch.from_numpy(rng.randn(1, 32, h, w).astype(np.float32)) for _ in range(2))
+    before = dict(ConvBR.eval_routes)
+    with torch.no_grad():
+        got = net(left, right, d)
+        ndhwc = _route_delta(before)
+        before = dict(ConvBR.eval_routes)
+        monkeypatch.setattr(MatchingNet, "layout", lambda self, part: torch.contiguous_format)
+        want = net(left, right, d)
+        ncdhw = _route_delta(before)
+    assert ndhwc["ndhwc"] > 0 and ndhwc == {"ndhwc_fused": 0, "ndhwc": ndhwc["ndhwc"], "ncdhw": 0}
+    assert ncdhw == {"ndhwc_fused": 0, "ndhwc": 0, "ncdhw": ndhwc["ndhwc"]}
+    assert got.shape == want.shape == (1, 32, d, h, w) and got.is_contiguous()
+    # fp32, the same algebra; the CPU's NDHWC convolutions sum in another order.
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("mode", ["train", "sharded"])
+def test_training_and_sharded_forwards_stay_ncdhw(mode):
+    """Training and a forward on a slab (a one-shard partition here) never see
+    an NDHWC volume: no 3-D ConvBR input is NDHWC, and the route counter
+    counts no NDHWC call (training: no eval call at all)."""
+    d, h, w = 9, 7, 17
+    net = _matching_net(BEST_SCENEFLOW["matching"], DEFAULT_SKIPS).train(mode == "train")
+    rng = np.random.RandomState(10)
+    left, right = (torch.from_numpy(rng.randn(1, 32, h, w).astype(np.float32)) for _ in range(2))
+    inputs = []
+    hooks = [m.register_forward_pre_hook(lambda _, args: inputs.append(args[0]))
+             for m in net.modules() if isinstance(m, ConvBR)]
+    before = dict(ConvBR.eval_routes)
+    with torch.no_grad():
+        out = net(left, right, d, part=None if mode == "train" else DispPartition(d))
+    for hk in hooks:
+        hk.remove()
+    delta = _route_delta(before)
+    assert inputs and not any(is_ndhwc(x) for x in inputs)
+    assert out.is_contiguous() and out.shape == (1, 32, d, h, w)
+    assert delta["ndhwc"] == delta["ndhwc_fused"] == 0
+    assert (delta["ncdhw"] == 0) if mode == "train" else (delta["ncdhw"] > 0)

@@ -20,7 +20,8 @@ from leastereo_tpu.ops import softargmin as j_sa
 from leastereo_tpu_torch.ops import resize
 from leastereo_tpu_torch.ops.convbr import ConvBR
 from leastereo_tpu_torch.ops.cost_volume import build_cost_volume
-from leastereo_tpu_torch.ops.fused_stem import fused_cost_volume_stem
+from leastereo_tpu_torch.ops.fused_stem import fused_cost_volume_stem, stem_ndhwc_cuda
+from leastereo_tpu_torch.ops.layout import cat_channels, cat_ndhwc_cuda, is_ndhwc
 from leastereo_tpu_torch.ops.softargmin import disparity_entropy, soft_argmin, soft_argmin_fast
 from leastereo_tpu_torch.utils.weights import state_dict_from_jax
 
@@ -159,3 +160,86 @@ def test_fused_stem_matches_jax_and_volume_conv(b, h, w, c, f, num_disp, epilogu
     if epilogue:
         own = torch.relu(own)
     torch.testing.assert_close(got, own, rtol=1e-4, atol=1e-4)
+
+
+NDHWC = torch.channels_last_3d
+
+
+@pytest.mark.parametrize("src,dst", [((4, 5, 6), (7, 9, 11)), ((8, 6, 10), (16, 12, 20)), ((7, 9, 11), (4, 5, 6)),
+                                     ((16, 12, 20), (8, 6, 10)), ((5, 6, 7), (9, 12, 3))])
+def test_resize3d_keeps_ndhwc(src, dst):
+    """An NDHWC volume resizes to an NDHWC volume with ``F.interpolate``'s values."""
+    x = torch.from_numpy(np.random.RandomState(6).randn(2, 8, *src).astype(np.float32))
+    got = resize.resize3d(x.contiguous(memory_format=NDHWC), dst)
+    assert is_ndhwc(got)
+    torch.testing.assert_close(got, F.interpolate(x, size=dst, mode="trilinear", align_corners=True),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_ndhwc_resize_kernel_scales_and_refusals():
+    """The resize kernel's scales are PyTorch's (float32 division, 0 for one
+    output); the NDHWC kernels' wrappers refuse CPU and NCDHW volumes."""
+    for n_in, n_out in ((17, 34), (64, 32), (68, 136), (9, 5), (3, 1)):
+        want = (torch.tensor(float(n_in - 1)) / (n_out - 1)).item() if n_out > 1 else 0.0
+        assert resize._align_corners_scale(n_in, n_out, torch.float32) == want
+        assert resize._align_corners_scale(n_in, n_out, torch.float64) == (
+            (n_in - 1) / (n_out - 1) if n_out > 1 else 0.0)
+    x = torch.zeros(1, 8, 3, 4, 5)
+    for vol in (x, x.contiguous(memory_format=NDHWC)):
+        with pytest.raises(ValueError, match="NDHWC CUDA volume"):
+            resize.resize3d_ndhwc_cuda(vol, (5, 6, 7))
+        with pytest.raises(ValueError, match="NDHWC cat"):
+            cat_ndhwc_cuda([vol, vol])
+    with pytest.raises(ValueError, match="NDHWC stem"):
+        stem_ndhwc_cuda(torch.zeros(1, 120, 8), torch.zeros(1, 32, 8), torch.zeros(1, 3, 4, 8), None, True,
+                        [(0, 1, 2)], (0, 3), 3, 4, 5)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+@pytest.mark.parametrize("b,h,w,c,f,num_disp,planes",
+                         [(1, 8, 12, 4, 6, 5, None), (2, 6, 9, 3, 4, 9, None), (1, 4, 6, 2, 2, 10, (3, 8))])
+def test_fused_stem_writes_ndhwc(b, h, w, c, f, num_disp, planes, epilogue):
+    """``memory_format=channels_last_3d``: the same values, laid out NDHWC."""
+    rng = np.random.RandomState(7)
+    left, right = (torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)) for _ in range(2))
+    kernel = torch.from_numpy(rng.randn(f, 2 * c, 3, 3, 3).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(f).astype(np.float32)) if epilogue else None
+    kw = dict(bias=bias, relu=epilogue, planes=planes)
+    want = fused_cost_volume_stem(left, right, kernel, num_disp, **kw)
+    got = fused_cost_volume_stem(left, right, kernel, num_disp, memory_format=NDHWC, **kw)
+    assert is_ndhwc(got) and want.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bn,relu,k", [(True, True, 3), (True, True, 1), (False, False, 3), (True, False, 1)])
+def test_convbr_eval_routes(bn, relu, k):
+    """A 3-D eval ConvBR keeps its input's layout and counts its route; the
+    same values either way; training and 2-D convolutions count none."""
+    rng = np.random.RandomState(8)
+    conv = ConvBR(6, 8, k, 1, k // 2, ndim=3, bn=bn, relu=relu)
+    if bn:
+        conv.bn.running_mean.normal_(0, 0.2)
+        conv.bn.running_var.uniform_(0.5, 2.0)
+    x = torch.from_numpy(rng.randn(2, 6, 5, 7, 9).astype(np.float32))
+    before = dict(ConvBR.eval_routes)
+    with torch.no_grad():
+        want = conv.eval()(x)
+        got = conv(x.contiguous(memory_format=NDHWC))
+        conv.train()(x)
+        ConvBR(6, 8, 3, 1, 1, ndim=2).eval()(x[:, :, 0])
+    delta = {k: v - before[k] for k, v in ConvBR.eval_routes.items()}
+    assert delta == {"ndhwc_fused": 0, "ndhwc": 1, "ncdhw": 1}
+    assert is_ndhwc(got) and want.is_contiguous()
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("channels", [(8, 8), (16, 16, 16, 16), (32, 64), (3, 5)])
+def test_cat_channels(channels):
+    """NDHWC volumes join along C into an NDHWC volume, NCDHW ones into an
+    NCDHW one, with ``torch.cat``'s values either way."""
+    rng = np.random.RandomState(11)
+    xs = [torch.from_numpy(rng.randn(2, c, 3, 4, 5).astype(np.float32)) for c in channels]
+    want = torch.cat(xs, dim=1)
+    got = cat_channels([x.contiguous(memory_format=NDHWC) for x in xs])
+    assert is_ndhwc(got) and torch.equal(got, want)
+    assert cat_channels(xs).is_contiguous() and torch.equal(cat_channels(xs), want)
