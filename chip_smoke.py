@@ -183,6 +183,7 @@ PEAK_SFU_S = 16 * 132 * 1.98e9
 # Kernel-name patterns for the per-frame device-time breakdown (first match wins).
 KERNEL_GROUPS = (
     ("head kernels (this port)", ("head_sm90_kernel", "head_sm90_f32_kernel", "band_kernel")),
+    ("3x3x3 convolutions (this port)", ("conv3d_sm90_kernel",)),
     ("cuDNN layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convolutions (cuDNN)", ("xmma", "implicit_gemm", "conv", "cudnn", "gemm", "sm90_", "sm80_")),
     ("trilinear/bilinear resize", ("upsample",)),
@@ -193,12 +194,19 @@ TOL_KERNEL_PX = kernel_parity.ATOL_PX  # kernels against float64 plain versions
 SRC_SM90 = "leastereo_tpu_torch/csrc/fused_head_sm90.cu"
 SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 SRC_NDHWC = "leastereo_tpu_torch/csrc/ndhwc.cu"
+SRC_CONV3D = "leastereo_tpu_torch/csrc/conv3d_sm90.cu"
 MD_FRAME = (1008, 1512, 408)  # a Middlebury frame (predict_md.sh): H, W, maxdisp
 # The NDHWC kernels' calls a frame, and the 3-D eval ConvBR routes a frame
 # (the 7 conv-then-resize projections of models/cells.py apply their ReLU
 # after the resize, so they take the unfused route).
 NDHWC_CALLS = {"stem_ndhwc": 1, "cat_ndhwc": 14, "resize_ndhwc": 17}
-CONVBR_ROUTES = {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
+CONVBR_ROUTES = {"ndhwc_sm90": 73, "ndhwc_fused": 20, "ndhwc": 7, "ncdhw": 0}
+# The matching net's 3x3x3 convolutions by class, (frame, C_in, C_out, (D, H,
+# W), calls a frame): the skips, the level-1 cells, the stem, the level-0
+# cell, the level-2 cells.
+CONV3D_CLASSES = [(frame, *c) for frame, dhw in (("middlebury", (136, 336, 504)), ("kitti", (64, 128, 416)))
+                  for c in ((128, 64, tuple(n // 2 for n in dhw), 2), (16, 16, tuple(n // 2 for n in dhw), 36),
+                            (32, 32, dhw, 1), (8, 8, dhw, 6), (32, 32, tuple(n // 4 for n in dhw), 30))]
 TOL_MODEL_PX = 2e-3  # whole model, kernel path against plain path, fp32
 TOL_CLI_PX = 2e-3  # the evaluate driver's frame 0 against the model called directly
 TOL_EXPORT_PX = 1e-3  # a loaded .pt2 program against the eager model (the driver's own round-trip bound)
@@ -1616,6 +1624,65 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
     return export_launches
 
 
+def conv3d_classes_phase(card: str) -> list:
+    """The matching net's 3x3x3 classes at a Middlebury and a KITTI frame's
+    shapes (seeded bf16 inputs): the sm90 kernel (where the gate admits the
+    class) against its plain version's fp32 sums within one bf16 rounding,
+    then, in turns (kernel, fused, fused, kernel; best of two), its ms beside
+    cuDNN's fused call as the port made it before the kernel, the plain
+    version's ms, cuDNN's own pick with ``torch.backends.cudnn.benchmark`` on
+    (inside this phase only; the port never sets it) and the bound. One
+    ``conv3d_class`` line a class; raises on a kernel outside the bound."""
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_plain, conv3d_bias_relu_sm90, conv3d_sm90_admits
+    from leastereo_tpu_torch.ops.convbr import conv_bias_relu_cudnn
+
+    dev, cl = torch.device("cuda"), torch.channels_last_3d
+    rows = []
+    for frame, cin, cout, dhw, calls in CONV3D_CLASSES:
+        gen = torch.Generator(device=dev).manual_seed(cin + dhw[0])
+        x = torch.relu(torch.randn(1, cin, *dhw, generator=gen, device=dev)).to(torch.bfloat16).contiguous(
+            memory_format=cl)
+        w = (torch.randn(cout, cin, 3, 3, 3, generator=gen, device=dev) / (27 * cin) ** 0.5).to(
+            torch.bfloat16, memory_format=cl)
+        b = (0.3 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
+        voxels = math.prod(dhw)
+        lim = bound(voxels * (cin + cout) * 2 + w.numel() * 2, 2 * 27 * cin * cout * voxels, torch.bfloat16, 0)
+        fns = {"fused": lambda: conv_bias_relu_cudnn(x, w, b, [1] * 3, [1] * 3)}
+        row = {"phase": "conv3d_class", "card": card, "frame": frame, "cin": cin, "cout": cout, "dhw": list(dhw),
+               "calls_per_frame": calls, "admitted": conv3d_sm90_admits(x, w, b, True, (1, 1, 1), (1, 1, 1)),
+               "bound_ms": lim[0], "bound_by": lim[1]}
+        if row["admitted"]:
+            fns["sm90"] = lambda: conv3d_bias_relu_sm90(x, w, b)
+            got = fns["sm90"]()
+            exact = torch.relu(F.conv3d(x.float(), w.float(), b.float(), padding=1))
+            err = (got.float() - exact).abs_()
+            row["max_abs_err"] = err.max().item()
+            row["within_one_rounding"] = bool((err <= 2 ** -8 * exact.abs() + 1e-5 * exact.abs().max()).all())
+            del got, exact, err
+        turns = {k: [] for k in fns}
+        for key in ("sm90", "fused", "fused", "sm90"):
+            if key in fns:
+                turns[key].append(cuda_ms(fns[key], iters=10))
+        row.update({f"{k}_ms": min(v) for k, v in turns.items()})
+        row["plain_ms"] = cuda_ms(lambda: conv3d_bias_relu_plain(x, w, b), iters=3, warmup=1)
+        torch.backends.cudnn.benchmark = True
+        try:
+            row["cudnn_benchmark_ms"] = cuda_ms(fns["fused"], iters=10)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        if row["admitted"]:
+            row["share_of_bound"] = lim[0] / row["sm90_ms"]
+            row["sm90_over_fused"] = row["sm90_ms"] / row["fused_ms"]
+        emit(row)
+        rows.append(row)
+        del x, w, b
+        torch.cuda.empty_cache()
+    bad = [r for r in rows if r["admitted"] and not r["within_one_rounding"]]
+    if bad:
+        raise AssertionError(f"sm90 3x3x3 convolution outside one bf16 rounding: {bad}")
+    return rows
+
+
 def ndhwc_counters() -> dict:
     """The launch counters of the NDHWC kernels (``csrc/ndhwc.cu``), by kernel."""
     from leastereo_tpu_torch.ops.fused_stem import stem_ndhwc_cuda
@@ -1765,7 +1832,7 @@ def main() -> int:
     ptxas = [ln.strip() for ln in (_build.BUILD_DIR / "nvcc.log").read_text().splitlines() if "Used" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": build_s,
           "built": list(counters),
-          "sources": [SRC_SM90, SRC_HEADS], "ptxas": ptxas})
+          "sources": [SRC_SM90, SRC_HEADS, SRC_NDHWC, SRC_CONV3D], "ptxas": ptxas})
 
     # ---- 3. kernels against their plain versions at the main path's shapes
     # (utils/kernel_parity.py: each kernel against float64 on peaky, wide and
@@ -1888,6 +1955,10 @@ def main() -> int:
     del vol32, vol, cost, v24
     torch.cuda.empty_cache()
 
+    # The matching net's 3x3x3 convolution classes: the sm90 kernel against
+    # cuDNN (fused as the port called it before, and its benchmark pick).
+    conv_rows = conv3d_classes_phase(card)
+
     # ---- 4. main path at KITTI
     H, W = 384, 1248
     rng = np.random.RandomState(0)
@@ -1901,11 +1972,12 @@ def main() -> int:
         emit_check(check)
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
     from leastereo_tpu_torch.ops.convbr import ConvBR
 
     ndhwc = ndhwc_counters()
     zero_counts()
-    for fn in ndhwc.values():
+    for fn in (*ndhwc.values(), conv3d_bias_relu_sm90):
         fn.launches = 0
     routes0 = dict(ConvBR.eval_routes)
     warmup = 3
@@ -1928,6 +2000,7 @@ def main() -> int:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         default_launches = read_counts()
         ndhwc_launches = {k: fn.launches for k, fn in ndhwc.items()}
+        conv3d_launches = conv3d_bias_relu_sm90.launches
         convbr_routes = {k: v - routes0[k] for k, v in ConvBR.eval_routes.items()}
         disp_conf, ent = model_conf(left, right)
         torch.cuda.synchronize()
@@ -1941,13 +2014,14 @@ def main() -> int:
         and launches["band_soft_argmin"] == 1
         and ndhwc_launches == {k: n * default_frames for k, n in NDHWC_CALLS.items()}
         and convbr_routes == {k: n * default_frames for k, n in CONVBR_ROUTES.items()}
+        and conv3d_launches == CONVBR_ROUTES["ndhwc_sm90"] * default_frames
     )
     emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
           "frames": frames, "seconds": elapsed, "frames_per_s": frames / elapsed, "ms_per_frame": 1e3 * elapsed / frames,
           "peak_mem_gb": peak_gb, "disp_min": float(d_np.min()), "disp_max": float(d_np.max()), "disp_std": float(d_np.std()),
           "default_forward_frames": default_frames, "default_forward_launches": default_launches,
           "launches": launches, "default_forward_ndhwc_launches": ndhwc_launches,
-          "default_forward_convbr_routes": convbr_routes,
+          "default_forward_convbr_routes": convbr_routes, "default_forward_conv3d_sm90_launches": conv3d_launches,
           "confidence_disp_vs_default_max_px": (disp_conf.float() - disp.float()).abs().max().item()})
     if not ok:
         raise AssertionError("main path output or launch counts wrong")
@@ -2241,6 +2315,25 @@ def main() -> int:
                 "library_ms": kitti["library_ms"], "middlebury_ms": md["ms"], "middlebury_library_ms": md["library_ms"],
                 "middlebury_bound_ms": md["bound_ms"], "calls_per_frame": kitti["calls"]}
 
+    def conv3d_entry() -> dict:
+        # A frame's sums over the classes (calls a frame x a call's ms) at
+        # KITTI (ms, bound_ms, plain_ms, library_ms: cuDNN's fused call) and
+        # Middlebury (middlebury_*); cudnn_benchmark_ms: cuDNN's own pick.
+        def frame_sum(frame: str, key: str) -> float:
+            return sum(r["calls_per_frame"] * r[key] for r in conv_rows if r["frame"] == frame and r["admitted"])
+
+        entry = {"name": "conv3d_sm90", "route": "cuda", "source": SRC_CONV3D, "replaces": None,
+                 "launches": conv3d_launches, "launches_per_frame": conv3d_launches / default_frames,
+                 "path": "the eval matching net's 3x3x3 convolutions (phase 4)",
+                 "max_abs_err": max(r["max_abs_err"] for r in conv_rows if r["admitted"]), "bound_by": "per class",
+                 "classes": [{k: r[k] for k in ("frame", "cin", "cout", "dhw", "calls_per_frame", "admitted")}
+                             for r in conv_rows]}
+        for prefix, frame in (("", "kitti"), ("middlebury_", "middlebury")):
+            for key, col in (("ms", "sm90_ms"), ("bound_ms", "bound_ms"), ("plain_ms", "plain_ms"),
+                             ("library_ms", "fused_ms"), ("cudnn_benchmark_ms", "cudnn_benchmark_ms")):
+                entry[prefix + key] = frame_sum(frame, col)
+        return entry
+
     emit({"kernels": [
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
@@ -2280,6 +2373,7 @@ def main() -> int:
         ndhwc_entry("stem_ndhwc", "the eval matching net's stem, NDHWC (phase 4)"),
         ndhwc_entry("cat_ndhwc", "the eval matching net's cell and skip concatenations (phase 4)"),
         ndhwc_entry("resize_ndhwc", "the eval matching net's 3-D resizes, the last written NCDHW (phase 4)"),
+        conv3d_entry(),
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,11 +9,13 @@ net's volumes NDHWC (``ops/layout.py``), so convolutions go to cuDNN. The two Pa
 (the fused head in ``fused_head_sm90.cu``, the band kernel in
 ``soft_argmin_heads.cu``), built with
 ``nvcc`` at first use (``ops/_build.py``), beside the kernels of the eval
-matching net's NDHWC volumes (``ndhwc.cu``). Importing the package registers
-the heads as the custom ops ``torch.ops.leastereo.conv_soft_argmin`` and
-``torch.ops.leastereo.band_soft_argmin``, and the NDHWC resize and the fused
-convolution as ``torch.ops.leastereo.resize3d_ndhwc`` and
-``torch.ops.leastereo.conv_bias_relu``, so import it before
+matching net's NDHWC volumes (``ndhwc.cu``) and its 3x3x3 convolutions
+(``conv3d_sm90.cu``). Importing the package registers the heads as the
+custom ops ``torch.ops.leastereo.conv_soft_argmin`` and
+``torch.ops.leastereo.band_soft_argmin``, and the NDHWC resize and the two
+fused convolutions as ``torch.ops.leastereo.resize3d_ndhwc``,
+``torch.ops.leastereo.conv_bias_relu`` and
+``torch.ops.leastereo.conv3d_bias_relu_sm90``, so import it before
 ``torch.export.load`` of a program it exported (``cli/export.py``).
 """
 

@@ -8,8 +8,10 @@ The heads are the custom ops ``torch.ops.leastereo.conv_soft_argmin`` and
 ``torch.ops.leastereo.band_soft_argmin``, so the program carries them: on the
 card it launches the hand-written kernels, on the CPU their plain versions.
 A program exported on the card carries the matching net's NDHWC resizes
-and fused convolutions as ``torch.ops.leastereo.resize3d_ndhwc`` and
-``torch.ops.leastereo.conv_bias_relu`` too, the calls the eager model makes.
+and fused convolutions as ``torch.ops.leastereo.resize3d_ndhwc``,
+``torch.ops.leastereo.conv_bias_relu`` and
+``torch.ops.leastereo.conv3d_bias_relu_sm90`` too, the calls the eager
+model makes.
 Shapes are static (``(1, H, W, 3)`` fp32 NHWC, as the JAX export), and
 ``torch.export`` fixes the device: a program exported with ``--device cuda``
 (the default) runs on the card only. Import the package before loading, so

@@ -35,6 +35,7 @@ __all__ = [
     "head_sm90_f32_stages",
     "head_sm90_f32_smem_bytes",
     "SMEM_LIMIT",
+    "CONV3D_SM90_TILES",
 ]
 
 # Tile geometry of csrc/soft_argmin_heads.cu: BAND_TILE_H x BAND_TILE_W
@@ -109,6 +110,13 @@ def head_sm90_f32_smem_bytes(channels: int, d: int) -> int:
     Above ``SMEM_LIMIT`` exactly when no stage fits."""
     stages = max(head_sm90_f32_stages(channels, d), 1)
     return stages * (4 * head_sm90_entry_channels(channels) * _SM90_F32_BOX + 16) + _sm90_f32_fixed(d)
+
+
+# Classes of csrc/conv3d_sm90.cu, (C_in, C_out): its output tile TH x TW
+# voxels of a depth plane and the input planes its ring holds. The gate
+# (ops/conv3d.py) admits these classes; they are checked against the
+# library's own when it loads.
+CONV3D_SM90_TILES = {(8, 8): (16, 32, 4), (16, 16): (16, 32, 4), (32, 32): (16, 32, 4)}
 
 
 # Element types of the NDHWC kernels (csrc/ndhwc.cu), their ``dtype`` argument.
@@ -211,6 +219,16 @@ def load_kernels() -> ctypes.CDLL:
     lib.lst_stem_ndhwc.restype = i
     lib.lst_cat_ndhwc.argtypes = [ctypes.POINTER(p), ctypes.POINTER(i), i, p, i, i, ctypes.c_longlong, p]
     lib.lst_cat_ndhwc.restype = i
+    lib.lst_conv3d_sm90.argtypes = [p, p, p, p, *[i] * 6, p]
+    lib.lst_conv3d_sm90.restype = i
+    lib.lst_conv3d_sm90_geometry.argtypes = [i, i, ctypes.POINTER(i)]
+    lib.lst_conv3d_sm90_geometry.restype = i
+    for (cin, cout), tile in [*CONV3D_SM90_TILES.items(), ((128, 64), None)]:
+        geom = (i * 3)()
+        built = tuple(geom) if lib.lst_conv3d_sm90_geometry(cin, cout, geom) == 0 else None
+        if built != tile:
+            raise RuntimeError(f"sm90 3x3x3 convolution class ({cin}, {cout}): library (TH, TW, stages) {built} "
+                               f"!= host {tile}")
     # The gates decide with the formulas above: hold them to the built layout
     # (padded and grouped C, and D the deepest fp32 ring tests, included) so
     # a gate never admits a shape the kernel cannot launch.

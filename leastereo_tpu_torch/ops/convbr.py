@@ -18,10 +18,14 @@ place, without transposing either; on the card, with a bias and a ReLU, the
 whole ConvBR is one cuDNN call whose epilogue adds the bias and applies the
 ReLU (``torch.cudnn_convolution_relu``; a compiler traces it as the custom
 op ``torch.ops.leastereo.conv_bias_relu``, which cuDNN's op cannot be traced
-as; a shape cuDNN has no fused engine for raises). :attr:`ConvBR.eval_routes`
-counts the 3-D eval convolutions by route: ``ndhwc_fused``, ``ndhwc`` (the
-convolution, then the ReLU pass, if any: no ReLU or bias, float64, or the
-CPU) and ``ncdhw``.
+as; a shape cuDNN has no fused engine for raises). A bf16 3x3x3 ConvBR of
+stride 1 and padding 1 whose (C_in, C_out) the port's own kernel instantiates
+(``ops/conv3d.py`` :func:`conv3d_sm90_admits`) runs that kernel instead
+(``csrc/conv3d_sm90.cu``; traced as ``torch.ops.leastereo.conv3d_bias_relu_sm90``).
+:attr:`ConvBR.eval_routes` counts the 3-D eval convolutions by route:
+``ndhwc_sm90`` (eager calls of the kernel's wrapper, not traces),
+``ndhwc_fused``, ``ndhwc`` (the convolution, then the ReLU pass, if any: no
+ReLU or bias, float64, or the CPU) and ``ncdhw``.
 
 Parallel runs: with ``bn_group`` set (:func:`set_bn_group`), train-mode BN
 normalises with the statistics of the global batch over that group
@@ -43,6 +47,7 @@ import torch.nn.functional as F
 
 from ..parallel.halo import DispPartition, halo
 from ..utils.tracing import compiler_tracing
+from .conv3d import conv3d_bias_relu_sm90, conv3d_sm90_admits
 from .layout import is_ndhwc
 
 __all__ = ["ConvBR", "conv_bias_relu", "conv_bias_relu_cudnn", "fold_bn", "set_bn_group"]
@@ -89,7 +94,7 @@ class ConvBR(nn.Module):
         self.bn_group = None  # process group of the train-mode BN statistics
 
     # Calls of the 3-D eval convolution (:meth:`eval_conv`) by route.
-    eval_routes = dict.fromkeys(("ndhwc_fused", "ndhwc", "ncdhw"), 0)
+    eval_routes = dict.fromkeys(("ndhwc_sm90", "ndhwc_fused", "ndhwc", "ncdhw"), 0)
 
     def conv_fn(
         self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None, depth_pad: bool = True
@@ -177,9 +182,14 @@ class ConvBR(nn.Module):
             x = self.conv_fn(x, weight.to(x.dtype), bias, depth_pad)
             return torch.relu(x) if relu else x
         weight = weight.to(x.dtype, memory_format=torch.channels_last_3d)
+        padding = list(self.conv.padding if depth_pad else (0, *self.conv.padding[1:]))
+        stride = list(self.conv.stride)
+        if conv3d_sm90_admits(x, weight, bias, relu, stride, padding):
+            if compiler_tracing():
+                return torch.ops.leastereo.conv3d_bias_relu_sm90(x, weight, bias)
+            ConvBR.eval_routes["ndhwc_sm90"] += 1
+            return conv3d_bias_relu_sm90(x, weight, bias)
         if relu and bias is not None and x.is_cuda and x.dtype in _FUSED_DTYPES:
-            padding = list(self.conv.padding if depth_pad else (0, *self.conv.padding[1:]))
-            stride = list(self.conv.stride)
             ConvBR.eval_routes["ndhwc_fused"] += 1
             if compiler_tracing():
                 return torch.ops.leastereo.conv_bias_relu(x, weight, bias, stride, padding)

@@ -17,8 +17,10 @@ running statistics without it; the disparity-sharded resize reproduces
 partition equals the unsharded plain-head forward (volumes NCDHW) bit for
 bit; the NDHWC kernels equal their PyTorch versions (the resize
 ``F.interpolate``, the stem assembly its ops, the concat ``torch.cat``), the
-fused cuDNN epilogue stays within bf16 rounding, and a KITTI frame's
-matching net runs NDHWC throughout and hands the head an NCDHW volume.
+fused cuDNN epilogue and the sm90 3x3x3 convolution (at every class's
+Middlebury and KITTI shapes) stay within bf16 rounding, and a KITTI frame's
+matching net runs NDHWC throughout, its 3x3x3 convolutions on the sm90
+kernel, and hands the head an NCDHW volume.
 Every test skips without a CUDA card. This file imports neither JAX nor the
 JAX package, so it runs where JAX is not installed:
 
@@ -30,6 +32,7 @@ import pytest
 import torch
 
 from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
+from leastereo_tpu_torch.ops import _build
 from leastereo_tpu_torch.ops.fused_head import (
     conv_soft_argmin_cuda,
     ROUTE_WRAPPERS,
@@ -48,6 +51,11 @@ pytestmark = pytest.mark.cuda
 
 # fp32 kernels against float64: the summation order and __expf differ, 2e-3 px.
 TOL_PX = 2e-3
+
+# A bf16 KITTI or Middlebury frame's 3-D eval convolutions by route: the
+# 3x3x3 ones of the sm90 kernel's classes, the other ConvBRs with a bias and
+# a ReLU (the 1x1x1 ones) fused in cuDNN, the 7 conv-then-resize projections.
+FRAME_ROUTES = {"ndhwc_sm90": 73, "ndhwc_fused": 20, "ndhwc": 7, "ncdhw": 0}
 
 
 @pytest.fixture
@@ -368,6 +376,10 @@ def test_ndhwc_ops_pass_opcheck_on_card(dev, dtype):
     w = (0.2 * torch.randn(8, 16, 3, 3, 3, generator=gen, device=dev)).to(dtype, memory_format=cl)
     b = torch.randn(8, generator=gen, device=dev).to(dtype)
     torch.library.opcheck(torch.ops.leastereo.conv_bias_relu.default, (x, w, b, [1, 1, 1], [1, 1, 1]))
+    if dtype == torch.bfloat16:
+        w16 = (0.2 * torch.randn(16, 16, 3, 3, 3, generator=gen, device=dev)).to(dtype, memory_format=cl)
+        b16 = torch.randn(16, generator=gen, device=dev).to(dtype)
+        torch.library.opcheck(torch.ops.leastereo.conv3d_bias_relu_sm90.default, (x, w16, b16))
 
 
 def test_band_op_raises_on_refused_cost(dev):
@@ -382,8 +394,10 @@ def test_band_op_raises_on_refused_cost(dev):
 
 def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
     """``cli.export``'s program at the KITTI shape, saved and loaded: the sm90
-    head once per frame and no other head, equal to the eager model."""
+    head once per frame and no other head, the sm90 3x3x3 convolution at each
+    of its calls, equal to the eager model."""
     from leastereo_tpu_torch.cli.export import export_pt2
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
 
     model = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="bfloat16"), device=dev)
     path = tmp_path / "kitti.pt2"
@@ -393,11 +407,12 @@ def test_loaded_kitti_program_launches_sm90_per_frame(dev, tmp_path):
     frames = [tuple(torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
               for _ in range(2)]
     counters = (conv_soft_argmin_sm90, conv_soft_argmin_sm90_repitch, conv_soft_argmin_sm90_f32,
-                conv_soft_argmin_sm90_f32_repitch, soft_argmin_cuda)
+                conv_soft_argmin_sm90_f32_repitch, soft_argmin_cuda, conv3d_bias_relu_sm90)
     n = [f.launches for f in counters]
     with torch.inference_mode():
         got = [prog(left, right) for left, right in frames]
-    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0, 0, 0]
+    assert [f.launches - k for f, k in zip(counters, n)] == [len(frames), 0, 0, 0, 0,
+                                                            FRAME_ROUTES["ndhwc_sm90"] * len(frames)]
     with torch.inference_mode():
         for g, (left, right) in zip(got, frames):
             assert g.shape == (1, 384, 1248)
@@ -550,12 +565,13 @@ def test_ndhwc_resize_kernel_types_and_unaligned_base(dev, dtype):
 @pytest.mark.parametrize("cin,cout,k,dhw", [(32, 32, 3, (64, 128, 416)), (16, 16, 3, (32, 64, 208)),
                                             (8, 8, 3, (64, 128, 416)), (64, 16, 1, (32, 64, 208))])
 def test_convbr_fused_epilogue(dev, cin, cout, k, dhw):
-    """A bf16 eval ConvBR at the KITTI frame's shapes: the fused route (one
-    cuDNN call, bias and ReLU in its epilogue), the unfused NDHWC route and
-    the NCDHW route each within bf16 rounding of the float64 result on the
-    same bf16 input and kernel: one rounding fused, two (the convolution's,
-    then the bias add's) otherwise."""
-    from leastereo_tpu_torch.ops.convbr import ConvBR
+    """A bf16 eval ConvBR at the KITTI frame's shapes: its fused route (the
+    sm90 kernel for the 3x3x3 classes, else one cuDNN call, bias and ReLU in
+    the epilogue either way; cuDNN's fused call is also run on the 3x3x3
+    ones), the unfused NDHWC route and the NCDHW route each within bf16
+    rounding of the float64 result on the same bf16 input and kernel: one
+    rounding fused, two (the convolution's, then the bias add's) otherwise."""
+    from leastereo_tpu_torch.ops.convbr import ConvBR, conv_bias_relu_cudnn
     from leastereo_tpu_torch.ops.layout import is_ndhwc
 
     gen = torch.Generator().manual_seed(3)
@@ -574,16 +590,73 @@ def test_convbr_fused_epilogue(dev, cin, cout, k, dhw):
         fused = conv(xc)
         unfused = torch.relu(conv.eval_conv(xc, relu=False))
         ncdhw = conv(x)
-    assert {r: v - before[r] for r, v in ConvBR.eval_routes.items()} == {"ndhwc_fused": 1, "ndhwc": 1, "ncdhw": 1}
-    assert is_ndhwc(fused) and is_ndhwc(unfused) and ncdhw.is_contiguous()
+        cudnn = conv_bias_relu_cudnn(xc, w16.contiguous(memory_format=torch.channels_last_3d), b16, [1] * 3,
+                                     [k // 2] * 3)
+    route = "ndhwc_sm90" if k == 3 else "ndhwc_fused"
+    assert {r: v - before[r] for r, v in ConvBR.eval_routes.items()} == {
+        "ndhwc_sm90": 0, "ndhwc_fused": 0, route: 1, "ndhwc": 1, "ncdhw": 1}
+    assert is_ndhwc(fused) and is_ndhwc(unfused) and is_ndhwc(cudnn) and ncdhw.is_contiguous()
     scale = exact.abs().max().item()
-    for got, rounds_sum in ((fused, False), (unfused, True), (ncdhw, True)):
+    for got, rounds_sum in ((fused, False), (cudnn, False), (unfused, True), (ncdhw, True)):
         err = (got.double() - exact).abs()
         # A bf16 rounding moves a value by at most 2^-9 of it (bound: twice
         # that): of the result, and on the unfused routes first of the sum
         # before the bias; the fp32 sums are exact to far less.
         bound = 2 ** -8 * (exact.abs() + pre.abs() * rounds_sum) + 1e-5 * scale
         assert (err <= bound).all(), err.max().item()
+
+
+# The matching net's 3x3x3 classes, (C_in, C_out, (D, H, W)): at a
+# Middlebury frame (maxdisp 408, 1008x1512), then a KITTI one (192, 384x1248).
+CONV3D_CLASSES = [(128, 64, (68, 168, 252)), (16, 16, (68, 168, 252)), (32, 32, (136, 336, 504)),
+                  (8, 8, (136, 336, 504)), (32, 32, (34, 84, 126)),
+                  (128, 64, (32, 64, 208)), (16, 16, (32, 64, 208)), (32, 32, (64, 128, 416)),
+                  (8, 8, (64, 128, 416)), (32, 32, (16, 32, 104))]
+
+
+@pytest.mark.parametrize("cin,cout,dhw", [c for c in CONV3D_CLASSES if c[:2] in _build.CONV3D_SM90_TILES])
+def test_conv3d_sm90_kernel(dev, cin, cout, dhw):
+    """The sm90 3x3x3 convolution at each class's frame shapes against its
+    plain version's fp32 sums (fp32, TF32 off): within one bf16 rounding,
+    the bound ``test_convbr_fused_epilogue`` states for a fused route."""
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
+
+    gen = torch.Generator(device=dev).manual_seed(cin + dhw[0])
+    cl = torch.channels_last_3d
+    x = torch.relu(torch.randn(1, cin, *dhw, generator=gen, device=dev)).to(torch.bfloat16).contiguous(memory_format=cl)
+    w = (torch.randn(cout, cin, 3, 3, 3, generator=gen, device=dev) / (27 * cin) ** 0.5).to(torch.bfloat16,
+                                                                                             memory_format=cl)
+    b = (0.3 * torch.randn(cout, generator=gen, device=dev)).to(torch.bfloat16)
+    launches = conv3d_bias_relu_sm90.launches
+    got = conv3d_bias_relu_sm90(x, w, b)
+    assert conv3d_bias_relu_sm90.launches == launches + 1 and got.is_contiguous(memory_format=cl)
+    del gen
+    exact = torch.relu(torch.nn.functional.conv3d(x.float(), w.float(), b.float(), padding=1))
+    scale = exact.abs().max().item()
+    err = (got.float() - exact).abs_()
+    assert (err <= 2 ** -8 * exact.abs() + 1e-5 * scale).all(), err.max().item()
+
+
+def test_conv3d_sm90_wrapper_raises(dev):
+    """The wrapper takes its classes' NDHWC bf16 volumes at a 16-byte aligned
+    base with a channels_last_3d kernel, and raises on anything else."""
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
+
+    cl = torch.channels_last_3d
+    x = torch.zeros(1, 16, 4, 6, 8, dtype=torch.bfloat16, device=dev).contiguous(memory_format=cl)
+    w = torch.zeros(16, 16, 3, 3, 3, dtype=torch.bfloat16, device=dev).contiguous(memory_format=cl)
+    b = torch.zeros(16, dtype=torch.bfloat16, device=dev)
+    conv3d_bias_relu_sm90(x, w, b)
+    flat = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+    shifted = flat[1:].view(1, 4, 6, 8, 16).permute(0, 4, 1, 2, 3)
+    bad = [(x.float(), w.float(), b.float()), (x.contiguous(), w, b), (x, w.contiguous(), b), (shifted, w, b),
+           (x[:, :8], w[:8, :8].contiguous(memory_format=cl), b[:8].clone()),
+           (torch.zeros(1, 24, 4, 6, 8, dtype=x.dtype, device=dev).contiguous(memory_format=cl),
+            torch.zeros(24, 24, 3, 3, 3, dtype=x.dtype, device=dev).contiguous(memory_format=cl),
+            torch.zeros(24, dtype=x.dtype, device=dev))]
+    for args in bad:
+        with pytest.raises(ValueError, match="sm90 3x3x3"):
+            conv3d_bias_relu_sm90(*args)
 
 
 def _informative_state(dev, seed):
@@ -609,13 +682,14 @@ def _informative_state(dev, seed):
 def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
     """A KITTI-shaped bf16 frame: the stem written NDHWC by its kernel, every
     3-D eval ConvBR of the matching net (its 75 3x3x3 and 25 1x1x1
-    convolutions) on an NDHWC route, its 17 resizes and 14 concatenations in
-    the NDHWC kernels, the fused head launched once on a contiguous NCDHW
-    volume. The float32 frame (TF32 off) whose volumes stay NDHWC is within
+    convolutions) on an NDHWC route, the 3x3x3 ones on the sm90 kernel, its
+    17 resizes and 14 concatenations in the NDHWC kernels, the fused head
+    launched once on a contiguous NCDHW volume. The float32 frame (TF32 off) whose volumes stay NDHWC is within
     ``TOL_PX`` of the one whose volumes stay NCDHW throughout: only cuDNN's
     summation order differs between them."""
     import leastereo_tpu_torch.models.leastereo as lst
     from leastereo_tpu_torch.models.matching_net import MatchingNet
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
     from leastereo_tpu_torch.ops.convbr import ConvBR
     from leastereo_tpu_torch.ops.fused_stem import stem_ndhwc_cuda
     from leastereo_tpu_torch.ops.layout import cat_ndhwc_cuda
@@ -628,7 +702,7 @@ def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
     left, right = (torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
     vols, head = [], lst.conv_soft_argmin_fused
     monkeypatch.setattr(lst, "conv_soft_argmin_fused", lambda vol, k, m: vols.append(vol) or head(vol, k, m))
-    kernels = (conv_soft_argmin_sm90, resize3d_ndhwc_cuda, stem_ndhwc_cuda, cat_ndhwc_cuda)
+    kernels = (conv_soft_argmin_sm90, resize3d_ndhwc_cuda, stem_ndhwc_cuda, cat_ndhwc_cuda, conv3d_bias_relu_sm90)
 
     def routes_of(fn):
         before = dict(ConvBR.eval_routes)
@@ -640,17 +714,17 @@ def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
         got, delta = routes_of(lambda: model(left, right))
         torch.cuda.synchronize()
         # The 7 conv-then-resize projections (models/cells.py) apply their ReLU after the resize.
-        assert delta == {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
-        assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 17, 1, 14]
+        assert delta == FRAME_ROUTES
+        assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 17, 1, 14, FRAME_ROUTES["ndhwc_sm90"]]
         assert len(vols) == 1 and vols[0].shape == (1, 32, 64, 128, 416) and vols[0].is_contiguous()
         assert torch.isfinite(got).all()
         model32 = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"), device=dev)
         model32.load_state_dict(state)
         got32, delta = routes_of(lambda: model32(left, right))
-        assert delta == {"ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
+        assert delta == {"ndhwc_sm90": 0, "ndhwc_fused": 93, "ndhwc": 7, "ncdhw": 0}
         monkeypatch.setattr(MatchingNet, "layout", lambda self, part: torch.contiguous_format)
         want32, delta = routes_of(lambda: model32(left, right))
-        assert delta == {"ndhwc_fused": 0, "ndhwc": 0, "ncdhw": 100}
+        assert delta == {"ndhwc_sm90": 0, "ndhwc_fused": 0, "ndhwc": 0, "ncdhw": 100}
     gap = (got32 - want32).abs()
     print(f"float32 NDHWC vs NCDHW frame: mean {gap.mean().item():.3e} px, max {gap.max().item():.3e} px")
     assert gap.max().item() < TOL_PX

@@ -221,8 +221,8 @@ def test_ndhwc_matching_net_matches_ncdhw(monkeypatch, arch, skips, dhw):
         monkeypatch.setattr(MatchingNet, "layout", lambda self, part: torch.contiguous_format)
         want = net(left, right, d)
         ncdhw = _route_delta(before)
-    assert ndhwc["ndhwc"] > 0 and ndhwc == {"ndhwc_fused": 0, "ndhwc": ndhwc["ndhwc"], "ncdhw": 0}
-    assert ncdhw == {"ndhwc_fused": 0, "ndhwc": 0, "ncdhw": ndhwc["ndhwc"]}
+    assert ndhwc["ndhwc"] > 0 and ndhwc == {"ndhwc_sm90": 0, "ndhwc_fused": 0, "ndhwc": ndhwc["ndhwc"], "ncdhw": 0}
+    assert ncdhw == {"ndhwc_sm90": 0, "ndhwc_fused": 0, "ndhwc": 0, "ncdhw": ndhwc["ndhwc"]}
     assert got.shape == want.shape == (1, 32, d, h, w) and got.is_contiguous()
     # fp32, the same algebra; the CPU's NDHWC convolutions sum in another order.
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
@@ -248,5 +248,5 @@ def test_training_and_sharded_forwards_stay_ncdhw(mode):
     delta = _route_delta(before)
     assert inputs and not any(is_ndhwc(x) for x in inputs)
     assert out.is_contiguous() and out.shape == (1, 32, d, h, w)
-    assert delta["ndhwc"] == delta["ndhwc_fused"] == 0
+    assert delta["ndhwc"] == delta["ndhwc_fused"] == delta["ndhwc_sm90"] == 0
     assert (delta["ncdhw"] == 0) if mode == "train" else (delta["ncdhw"] > 0)

@@ -228,7 +228,7 @@ def test_convbr_eval_routes(bn, relu, k):
         conv.train()(x)
         ConvBR(6, 8, 3, 1, 1, ndim=2).eval()(x[:, :, 0])
     delta = {k: v - before[k] for k, v in ConvBR.eval_routes.items()}
-    assert delta == {"ndhwc_fused": 0, "ndhwc": 1, "ncdhw": 1}
+    assert delta == {"ndhwc_sm90": 0, "ndhwc_fused": 0, "ndhwc": 1, "ncdhw": 1}
     assert is_ndhwc(got) and want.is_contiguous()
     torch.testing.assert_close(got, want, **TOL)
 
