@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+It holds the kernels' times alone and the runs of the paths that no
+benchmark cell exercises. A frame's or a step's rate and the per-layer
+times of the benchmark's cells are ``benchmark/``'s; a frame's route and
+launch counts are ``tests/test_torch_cuda.py``'s.
+
 Phases, each printing one JSON line and raising on failure (nothing is
 caught, so any failure exits non-zero):
 
@@ -19,33 +24,33 @@ caught, so any failure exits non-zero):
    measurement: there fp32 rounding of the cost alone moves the result by
    ~3e-3 px); then the TMA heads' times in turns with their unfused
    yardsticks (cuDNN ``last_3`` in the volume's type, TF32 off, + band
-   kernel), the band kernel's time, grid and occupancy; the route shapes
+   kernel), each head at least twice as fast as its yardstick, the band
+   kernel's time, grid and occupancy; the route shapes
    (``utils/kernel_parity.ROUTE_SHAPES``: padded and grouped channels,
    widths TMA cannot read in place, an unaligned base), each launching its
-   route once and
-   within 2e-3 px of float64 on the three kinds of input, timed in turns
-   with its yardstick beside the retired first design's last time (cited
-   from PERF.md); and where the body's time goes: padded channels (C = 24
-   against 32) and the repitch copy (the repitch routes forced on the
-   volumes the in-place routes read).
+   route once and within 2e-3 px of float64 on the three kinds of input,
+   timed in turns with its yardstick; where the body's time goes: padded
+   channels (C = 24 against 32) and the repitch copy (the repitch routes
+   forced on the volumes the in-place routes read); and the matching net's
+   3x3x3 convolution classes at a Middlebury and a KITTI frame's shapes:
+   the sm90 kernel within one bf16 rounding, timed beside cuDNN.
 4. main path: ``best_sceneflow_model`` at KITTI 384x1248, maxdisp 192, bf16,
-   eval, random seeded weights: first the in-model fused path of
+   eval, random seeded weights: the in-model fused path of
    ``kernel_parity`` (the model's map against float64 on the volume and
    kernel it hands its head, the ``last_3`` kernel as calibrated, 10x and
-   0.1x), then the default forward (sm90 fused head, once per frame), timed for >= 10 s, then the ``return_entropy`` forward (band
-   kernel). Launch counts are zeroed just before and read just after; the
-   default forward's also those of the NDHWC kernels (``csrc/ndhwc.cu``:
-   stem, concat, resize; 1, 14 and 17 a frame) and its 3-D eval ConvBR
-   routes (93 fused, 7 unfused NDHWC, none NCDHW a frame). Then one frame
-   at KITTI and one at Middlebury (1008x1512, maxdisp 408, bf16) in which
-   every call of an NDHWC kernel is held bit for bit against its plain
+   0.1x); the ``return_entropy`` forward (one band-kernel launch and no
+   other head's; counts zeroed just before, read just after); then one
+   frame at KITTI and one at Middlebury (1008x1512, maxdisp 408, bf16) in
+   which every call of an NDHWC kernel (``csrc/ndhwc.cu``: stem, concat,
+   resize; 1, 14 and 17 a frame) is held bit for bit against its plain
    version on the same input (the stem against the fused stem's NCDHW
    PyTorch gathers, the concat against ``torch.cat``, the resize, the last
    one written NCDHW, against ``F.interpolate``), each timed beside it.
-5. layers and profile: per-layer times and the device's busy share; four
-   fp32 KITTI frames' device time and the fp32 sm90 head's share of it (one
-   launch a frame, no other head's; counts zeroed just before, read just
-   after).
+5. profile: the device time of three KITTI bf16 frames by kernel kind
+   (the class table of PERF.md section 5) and the launches of the kernel
+   table; four fp32 KITTI frames' device time and the fp32 sm90 head's
+   share of it (one launch a frame, no other head's; counts zeroed just
+   before, read just after).
 6. whole model, kernel path against plain path, fp32, 96x192, maxdisp 48
    (the fp32 sm90 head and the band kernel; counts zeroed just before and
    read just after); then the same with a 24-channel matching net
@@ -70,8 +75,7 @@ caught, so any failure exits non-zero):
    frame 0 of the default and the ``--full_frame`` run is held against
    phase 4's model called directly on the same padded input; the sm90 head
    at the ``--full_frame`` run's volume, (1, 32, 64, 112, 192) bf16, is held
-   against its plain version in float64 and timed. Prints each run's
-   per-frame load, ``run_frame`` and save times.
+   against its plain version in float64 and timed.
 9. export: ``python -m leastereo_tpu_torch.cli.export`` of phase 4's weights
    at 384x1248 (bf16) and of phase 6's at 96x192 (fp32, maxdisp 48), each
    passing its round-trip check; each ``.pt2`` loaded here and run with the
@@ -95,9 +99,7 @@ caught, so any failure exits non-zero):
    step 1's, one band-kernel launch per train step and one sm90-head launch
    per val frame (counts zeroed just before, read just after), ``best`` and
    ``final`` written, ``final`` loading into ``evaluate``, a run resumed
-   from ``best`` starting below the cold run's first loss. Prints the step
-   and val frame times, the peak memory, and from one profiled step the
-   device time by kernel kind and the band kernel's share.
+   from ``best`` starting below the cold run's first loss.
 11. search: the band kernel at the search cost (2, 64, 64, 128), peaky,
    wide and diffuse, against float64; one supernet weight step's gradients
    (fp32, TF32 off, 96x192, maxdisp 48, 6-layer/12-layer filter-4 block-3
@@ -196,11 +198,8 @@ SRC_HEADS = "leastereo_tpu_torch/csrc/soft_argmin_heads.cu"
 SRC_NDHWC = "leastereo_tpu_torch/csrc/ndhwc.cu"
 SRC_CONV3D = "leastereo_tpu_torch/csrc/conv3d_sm90.cu"
 MD_FRAME = (1008, 1512, 408)  # a Middlebury frame (predict_md.sh): H, W, maxdisp
-# The NDHWC kernels' calls a frame, and the 3-D eval ConvBR routes a frame
-# (the 7 conv-then-resize projections of models/cells.py apply their ReLU
-# after the resize, so they take the unfused route).
+# The NDHWC kernels' calls a frame.
 NDHWC_CALLS = {"stem_ndhwc": 1, "cat_ndhwc": 14, "resize_ndhwc": 17}
-CONVBR_ROUTES = {"ndhwc_sm90": 73, "ndhwc_fused": 20, "ndhwc": 7, "ncdhw": 0}
 # The matching net's 3x3x3 convolutions by class, (frame, C_in, C_out, (D, H,
 # W), calls a frame): the skips, the level-1 cells, the stem, the level-0
 # cell, the level-2 cells.
@@ -283,16 +282,13 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def host_us(fn, iters: int = 50) -> float:
-    """Mean host wall time (us) to enqueue ``fn``, after one synchronised call."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    t = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return 1e6 * t / iters
+def by_kind(events, frames: int = 1) -> dict:
+    """Device ms of profiler ``events`` a frame by ``KERNEL_GROUPS`` kind, largest first."""
+    groups = {}
+    for e in events:
+        kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / frames
+    return dict(sorted(groups.items(), key=lambda kv: -kv[1]))
 
 
 def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, str]:
@@ -304,15 +300,6 @@ def bound(bytes_moved: int, flops: int, flop_dtype, exps: int) -> tuple[float, s
 
 
 SPAN_300 = 300.0  # scale of the cost in phase wide_span_300x
-# The retired first fused head design's last times, ms, cited beside the
-# routes that replace it in phases kernel_times and route_shape, not
-# measured here (PERF.md section 6: the KITTI volumes, PR 9; the route
-# shapes, the "shape" lines of utils/head_routes_bench.py in turns with each
-# route, PR 12).
-FIRST_DESIGN_MS = {"kitti_bf16": 1.4139616012573242, "kitti_fp32": 1.2691791534423829,
-                   "c24": 1.059390106201172, "c12_search_widths": 0.551267204284668,
-                   "c80_groups": 3.3366732788085938, "w412": 1.3552371215820314,
-                   "w414_f32": 1.2516390228271483, "unaligned": 1.0566496276855468}
 # The route each shape of utils/kernel_parity.ROUTE_SHAPES takes.
 SHAPE_ROUTES = {"c24": "sm90", "c12_search_widths": "sm90", "c80_groups": "sm90", "w412": "sm90_repitch",
                 "w414_f32": "sm90_f32_repitch", "unaligned": "sm90_repitch"}
@@ -366,8 +353,7 @@ def route_shapes_phase(gen, maxdisp: int, dev, card: str) -> dict:
                            2 * 27 * c * b * d * h * w, dtype, b * 9 * h * w * d)
         line.update({"ms": min(turns["route"]), "yardstick_ms": min(turns["yardstick"]), "turns_ms": turns,
                      "plain_ms": cuda_ms(lambda: conv_soft_argmin_reference(vol, kern, maxdisp), iters=3),
-                     "bound_ms": head_bound[0], "bound_by": head_bound[1],
-                     "first_design_ms_cited": FIRST_DESIGN_MS[name]})
+                     "bound_ms": head_bound[0], "bound_by": head_bound[1]})
         line["max_abs_err"] = max(line[f"{k}_max_abs_err_px"] for k in kernel_parity.KINDS)
         emit(line)
         if not line["max_abs_err"] < TOL_KERNEL_PX:
@@ -391,18 +377,14 @@ def _timed(fn, ms: list):
 
 
 @contextlib.contextmanager
-def stage_times(calls: dict, returned: dict):
+def stage_times(calls: dict):
     """While the block runs, time every call of each function
-    ``calls[label] = (owner, name)`` and of each function that
-    ``returned[label] = (owner, name)`` returns (wall ms, a list per label)."""
-    times = {label: [] for label in {**calls, **returned}}
+    ``calls[label] = (owner, name)`` (wall ms, a list per label)."""
+    times = {label: [] for label in calls}
     saved = []
     for label, (owner, name) in calls.items():
         saved.append((owner, name, getattr(owner, name)))
         setattr(owner, name, _timed(saved[-1][2], times[label]))
-    for label, (owner, name) in returned.items():
-        saved.append((owner, name, getattr(owner, name)))
-        setattr(owner, name, lambda *a, _fn=saved[-1][2], _ms=times[label], **k: _timed(_fn(*a, **k), _ms))
     try:
         yield times
     finally:
@@ -459,15 +441,12 @@ def cli_phase(model, counters: dict, card: str) -> dict:
             for fn in counters.values():
                 fn.launches = 0
             printed = io.StringIO()
-            # run_frame: pad, forward, un-pad; forward: H2D, the model, D2H.
-            stages = {"load": (StereoListDataset, "load_stack"), "run_frame": (mod, "run_frame"),
-                      "save": (mod, "save_frame")}
-            with stage_times(stages, {"forward": (mod, "make_forward")}) as ms, contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed):
                 rc = mod.main(argv)
             launches = {k: fn.launches for k, fn in counters.items()}
-            frames = len(ms["run_frame"])
-            if rc != 0 or frames != len(names):
-                raise AssertionError(f"cli {run}: rc {rc}, {frames} frames of {len(names)}")
+            frames = len(names)
+            if rc != 0:
+                raise AssertionError(f"cli {run}: rc {rc}")
             if launches != {k: (frames if k == head else 0) for k in counters}:
                 raise AssertionError(f"cli {run}: launches {launches}, expected {frames} of {head} only")
             suffixes = ([".png", ".npy"] if driver == "predict" else
@@ -488,8 +467,6 @@ def cli_phase(model, counters: dict, card: str) -> dict:
             if not all(math.isfinite(v) for v in means.values()):
                 raise AssertionError(f"cli {run}: metrics {means}")
             line = {"phase": "cli", "run": run, "card": card, "argv": ["--split", split] + flags, "frames": frames,
-                    **{f"{k}_ms_median": float(np.median(v)) for k, v in ms.items()},
-                    **{f"{k}_ms": v for k, v in ms.items()},
                     "launches": launches, "metrics_mean": means, "cudnn_tf32": True,
                     "note": "random seeded weights (phase 4's): the metrics show only that the pipeline runs"}
             if run in CLI_PADDED:
@@ -529,10 +506,9 @@ def train_phase(counters: dict, card: str) -> dict:
     from leastereo_tpu_torch import LEAStereoConfig, best_sceneflow_model
     from leastereo_tpu_torch.cli import evaluate
     from leastereo_tpu_torch.cli import train as train_cli
-    from leastereo_tpu_torch.data import ListSet, StereoListDataset, make_loader
     from leastereo_tpu_torch.ops.fused_softargmin import soft_argmin_cuda, soft_argmin_fused
     from leastereo_tpu_torch.ops.softargmin import soft_argmin
-    from leastereo_tpu_torch.train import make_optimizer, masked_smooth_l1, train_step
+    from leastereo_tpu_torch.train import masked_smooth_l1
 
     dev = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
@@ -640,38 +616,30 @@ def train_phase(counters: dict, card: str) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         for fn in counters.values():
             fn.launches = 0
-        torch.cuda.reset_peak_memory_stats()
         printed = io.StringIO()
         saved_plain, lst.soft_argmin = lst.soft_argmin, no_plain_head
-        t0 = time.perf_counter()
         try:
-            with stage_times({"train_step": (train_cli, "train_step"), "eval_step": (train_cli, "eval_step")},
-                             {}) as ms, contextlib.redirect_stdout(printed):
+            with contextlib.redirect_stdout(printed):
                 rc = train_cli.main(recipe + ["--epochs", str(TRAIN_EPOCHS), "--run_root", tmp, "--experiment", "ft"])
         finally:
             lst.soft_argmin = saved_plain
-        run_s = time.perf_counter() - t0
         launches = {k: fn.launches for k, fn in counters.items()}
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         exp = os.path.join(tmp, "kitti15_part-train", "ft")
         log = read_log(exp)
         train_log = [ln for ln in log if "loss" in ln]
         val_log = [ln for ln in log if "val_err3" in ln]
-        n_steps, n_val = len(ms["train_step"]), len(ms["eval_step"])
         ckpts = {kind: sorted(os.listdir(os.path.join(exp, "checkpoints", kind)))
                  for kind in os.listdir(os.path.join(exp, "checkpoints"))}
         line = {"phase": "train", "card": card, "recipe": recipe + ["--epochs", str(TRAIN_EPOCHS)], "rc": rc,
-                "seconds": run_s, "steps": n_steps, "val_frames": n_val, "launches": launches,
-                "train_step_ms_median_2_to_last": float(np.median(ms["train_step"][1:])),
-                "train_step_ms": ms["train_step"], "val_frame_ms_median": float(np.median(ms["eval_step"])),
-                "peak_mem_gb": peak_gb, "explicit_volume_gb": TRAIN_B * 64 * (maxdisp // 3) * h * w * 2 / 1e9,
-                "logged": [{k: ln[k] for k in ("step", "loss", "epe", "err3")} for ln in train_log],
+                "launches": launches, "logged": [{k: ln[k] for k in ("step", "loss", "epe", "err3")} for ln in train_log],
                 "val_err3": [ln["val_err3"] for ln in val_log], "checkpoints": ckpts}
         losses = [ln["loss"] for ln in train_log]
-        ok = (rc == 0 and n_steps == TRAIN_EPOCHS and n_val == TRAIN_EPOCHS and len(val_log) == TRAIN_EPOCHS
+        # One step and one val frame an epoch: the band kernel once a step,
+        # the sm90 head once a val frame.
+        ok = (rc == 0 and len(val_log) == TRAIN_EPOCHS
               and all(math.isfinite(x) for x in losses) and train_log[-1]["step"] == TRAIN_EPOCHS
               and losses[-1] < 0.5 * losses[0]
-              and launches == {k: {"band_soft_argmin": n_steps, "fused_head_sm90": n_val}.get(k, 0) for k in counters}
+              and launches == {k: TRAIN_EPOCHS if k in ("band_soft_argmin", "fused_head_sm90") else 0 for k in counters}
               and ckpts.get("best") and ckpts.get("final") == [f"{TRAIN_EPOCHS}.pth"])
         if not ok:
             emit(line)
@@ -691,45 +659,9 @@ def train_phase(counters: dict, card: str) -> dict:
         if rc_eval != 0 or rc_resume != 0 or not resumed["loss"] < losses[0]:
             emit(line)
             raise AssertionError(f"fine-tune checkpoints: {line}")
-
-        # One more step of the recipe's shapes, alone: its peak memory, and
-        # under the profiler the device time by kernel and the band kernel's share.
-        ds = StereoListDataset("kitti15_part", ListSet.resolve("kitti15_part", lists_dir).train, root=KITTI_ROOT,
-                               crop_size=(TRAIN_H, TRAIN_W), training=True, seed=2019)
-        batch = next(iter(make_loader(ds, TRAIN_B, device=dev, seed=2019, num_workers=2)(0)))
-        model = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16"), seed=2019)
-        opt = make_optimizer([p for p in model.parameters()], "adam", 1e-3)
-        train_step(model, opt, batch, maxdisp, 1e-3)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base_gb = torch.cuda.memory_allocated() / 1e9
-        train_step(model, opt, batch, maxdisp, 1e-3)
-        step_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            train_step(model, opt, batch, maxdisp, 1e-3)
-            torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    band_ms = sum(e.self_device_time_total for e in events if "band_kernel" in e.key) / 1e3
-    groups = {}
-    for e in events:
-        kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
-    line.update({"step_alone_peak_mem_gb": step_peak_gb, "step_alone_start_mem_gb": base_gb,
-                 "profiled_step_device_ms": busy_ms, "band_kernel_device_ms": band_ms,
-                 "band_kernel_share": band_ms / busy_ms,
-                 "profiled_step_device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
-                 "top_kernels_ms": [[e.key[:100], e.self_device_time_total / 1e3]
-                                    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]]})
-    if not band_ms > 0:
-        raise AssertionError("the profiled train step shows no band kernel time")
     emit(line)
-    del model, opt, batch
     torch.cuda.empty_cache()
-    return {"train_steps": n_steps, "val_frames": n_val, "launches": launches,
+    return {"train_steps": TRAIN_EPOCHS, "val_frames": TRAIN_EPOCHS, "launches": launches,
             "band_ms": band["ms"], "band_plain_ms": band["plain_ms"], "band_bound_ms": band["bound_ms"],
             "band_bound_by": band["bound_by"], "band_err": max(band["peaky_max_abs_err_px"], band["diffuse_max_abs_err_px"]),
             "head_ms": head["ms"], "head_plain_ms": head["plain_ms"], "head_bound_ms": head["bound_ms"],
@@ -862,7 +794,6 @@ def search_phase(counters: dict, card: str) -> dict:
               "--fea_num_layers", "6", "--mat_num_layers", "12", "--dtype", "bfloat16",
               "--batch_size", str(SEARCH_B), "--epochs", str(SEARCH_EPOCHS), "--alpha_epoch", str(SEARCH_ALPHA_EPOCH),
               "--lr", "0.025", "--min_lr", "0.001", "--arch_lr", "0.001", "--workers", "2", "--device", "cuda"]
-    result = {}
     with tempfile.TemporaryDirectory() as tmp:
         argv = recipe + ["--run_root", tmp, "--experiment", "search"]
         init = search_cli.build_supernet(search_parser().parse_args(argv)).state_dict()
@@ -886,7 +817,7 @@ def search_phase(counters: dict, card: str) -> dict:
         t0 = time.perf_counter()
         try:
             with stage_times({"weight_step": (search_cli, "weight_step"), "arch_step": (search_cli, "arch_step"),
-                              "eval_step": (search_cli, "eval_step")}, {}) as ms, contextlib.redirect_stdout(printed):
+                              "eval_step": (search_cli, "eval_step")}) as ms, contextlib.redirect_stdout(printed):
                 rc = search_cli.main(argv)
         finally:
             search_cli.weight_step = saved_ws
@@ -943,15 +874,11 @@ def search_phase(counters: dict, card: str) -> dict:
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-        groups = {}
-        for e in events:
-            kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
-            groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3
         prof_line = {"phase": "search_step_profile", "card": card, "profiled_step_device_ms": busy_ms,
                      "device_idle_share": 1 - busy_ms / line["weight_step_ms_median_3_on"],
                      "device_ops": sum(e.count for e in events),
                      "band_kernel_device_ms": sum(e.self_device_time_total for e in events if "band_kernel" in e.key) / 1e3,
-                     "device_ms_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+                     "device_ms_by_kind": by_kind(events),
                      "top_kernels_ms": [[e.key[:100], e.self_device_time_total / 1e3, e.count]
                                         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]],
                      "note": "idle share: against cli.search's untraced median weight step (steps 3 on)"}
@@ -1521,7 +1448,7 @@ def frame_ms(fn, inputs, warmup: int = 3) -> list[float]:
     return times
 
 
-def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per_frame: float) -> dict:
+def export_phase(model, fp32_state: dict, counters: dict, card: str) -> dict:
     """Phase 9: ``cli.export`` of phase 4's KITTI bf16 model and of phase 6's
     fp32 model, each loaded back here and run with the counts zeroed just
     before; the loaded programs against the eager models; a trace of one
@@ -1613,7 +1540,6 @@ def export_phase(model, fp32_state: dict, counters: dict, card: str, main_ms_per
             flops, flops_plain = model_flops(model, l, r), model_flops(plain, l, r)
         del plain
     result.update({"kitti_bf16_frame_flops": flops, "kitti_bf16_frame_flops_unfused_head": flops_plain,
-                   "tflop_s_at_main_path_frame": flops / main_ms_per_frame / 1e9, "main_path_ms_per_frame": main_ms_per_frame,
                    "peak_hbm_gb": peak_hbm_gb(dev), "export_launches": export_launches,
                    "note": "flops count convolutions only (torch.utils.flop_counter); frame ms: CUDA events per frame"})
     emit(result)
@@ -1796,8 +1722,6 @@ def main() -> int:
     from leastereo_tpu_torch.ops import _build
     from leastereo_tpu_torch.ops.fused_head import (
         ROUTE_WRAPPERS,
-        conv_soft_argmin_cuda,
-        conv_soft_argmin_fused,
         conv_soft_argmin_reference,
         conv_soft_argmin_sm90,
         conv_soft_argmin_sm90_f32,
@@ -1903,15 +1827,13 @@ def main() -> int:
           "turns_ms": turns, "fused_head_fp32_volume_plain_ms": head_fp32_plain_ms,
           "fused_head_fp32_volume_bound_ms": head_fp32_bound[0], "fused_head_fp32_volume_bound_by": head_fp32_bound[1],
           "fused_head_sm90_f32_share_of_bound": head_fp32_bound[0] / sm90_f32_ms,
-          "first_design_ms_cited": {k: FIRST_DESIGN_MS[k] for k in ("kitti_bf16", "kitti_fp32")},
           "fp32_volume_mb": vol32.numel() * 4 / 1e6, "peak_bytes_s": PEAK_BYTES_S,
           "note": "ms: best of two turns (sm90, unfused, unfused, sm90, sm90_f32, unfused fp32, unfused fp32, "
                   "sm90_f32); fused heads take the fp32 kernel, the unfused bf16 cuDNN conv its bf16 rounding, the "
-                  "unfused fp32 one runs with TF32 off; first_design_ms_cited: the retired first design's last "
-                  "times (PERF.md section 6), not measured here"})
-    if not sm90_f32_ms < FIRST_DESIGN_MS["kitti_fp32"] / 2 or not sm90_ms < FIRST_DESIGN_MS["kitti_bf16"] / 2:
-        raise AssertionError(f"TMA heads {sm90_ms}, {sm90_f32_ms} ms are not twice as fast as the first design's "
-                             f"{FIRST_DESIGN_MS}")
+                  "unfused fp32 one runs with TF32 off"})
+    if not sm90_ms < unfused_ms / 2 or not sm90_f32_ms < unfused32_ms / 2:
+        raise AssertionError(f"TMA heads {sm90_ms}, {sm90_f32_ms} ms are not twice as fast as their yardsticks "
+                             f"{unfused_ms}, {unfused32_ms} ms")
 
     # The band kernel's grid at KITTI against the card's resident-block slots.
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1970,61 +1892,20 @@ def main() -> int:
     # against float64 on the volume and kernel it hands its head.
     for check in kernel_parity.in_model_checks(model, left, right):
         emit_check(check)
+    # The confidence forward: the band kernel, once.
     model_conf = best_sceneflow_model(LEAStereoConfig(maxdisp=maxdisp, compute_dtype="bfloat16", return_entropy=True))
     model_conf.load_state_dict(model.state_dict())
-    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
-    from leastereo_tpu_torch.ops.convbr import ConvBR
-
-    ndhwc = ndhwc_counters()
     zero_counts()
-    for fn in (*ndhwc.values(), conv3d_bias_relu_sm90):
-        fn.launches = 0
-    routes0 = dict(ConvBR.eval_routes)
-    warmup = 3
     with torch.inference_mode():
-        for _ in range(warmup):  # warm-up: cuDNN algorithm selection, allocator
-            disp = model(left, right)
-        torch.cuda.synchronize()
-        witness = torch.zeros((), device=dev)
-        frames, t0 = 0, time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        while True:
-            disp = model(left, right)
-            witness += disp.sum()  # full-reduction witness: every pixel feeds it
-            frames += 1
-            if frames % 10 == 0:
-                torch.cuda.synchronize()
-                if time.perf_counter() - t0 >= 10.0:
-                    break
-        elapsed = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        default_launches = read_counts()
-        ndhwc_launches = {k: fn.launches for k, fn in ndhwc.items()}
-        conv3d_launches = conv3d_bias_relu_sm90.launches
-        convbr_routes = {k: v - routes0[k] for k, v in ConvBR.eval_routes.items()}
         disp_conf, ent = model_conf(left, right)
         torch.cuda.synchronize()
     launches = read_counts()
-    default_frames = warmup + frames
-    d_np = disp.float().cpu().numpy()
-    ok = (
-        d_np.shape == (1, H, W) and np.isfinite(d_np).all() and d_np.min() >= 0 and d_np.max() <= maxdisp
-        and tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and math.isfinite(witness.item())
-        and default_launches == {k: default_frames if k == "fused_head_sm90" else 0 for k in counters}
-        and launches["band_soft_argmin"] == 1
-        and ndhwc_launches == {k: n * default_frames for k, n in NDHWC_CALLS.items()}
-        and convbr_routes == {k: n * default_frames for k, n in CONVBR_ROUTES.items()}
-        and conv3d_launches == CONVBR_ROUTES["ndhwc_sm90"] * default_frames
-    )
-    emit({"phase": "main_path", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
-          "frames": frames, "seconds": elapsed, "frames_per_s": frames / elapsed, "ms_per_frame": 1e3 * elapsed / frames,
-          "peak_mem_gb": peak_gb, "disp_min": float(d_np.min()), "disp_max": float(d_np.max()), "disp_std": float(d_np.std()),
-          "default_forward_frames": default_frames, "default_forward_launches": default_launches,
-          "launches": launches, "default_forward_ndhwc_launches": ndhwc_launches,
-          "default_forward_convbr_routes": convbr_routes, "default_forward_conv3d_sm90_launches": conv3d_launches,
-          "confidence_disp_vs_default_max_px": (disp_conf.float() - disp.float()).abs().max().item()})
-    if not ok:
-        raise AssertionError("main path output or launch counts wrong")
+    emit({"phase": "confidence_forward", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
+          "launches": launches, "entropy_finite": bool(torch.isfinite(ent).all())})
+    if not (tuple(ent.shape) == (1, H, W) and bool(torch.isfinite(ent).all()) and tuple(disp_conf.shape) == (1, H, W)
+            and launches == {k: int(k == "band_soft_argmin") for k in counters}):
+        raise AssertionError(f"confidence forward: launches {launches}, entropy {tuple(ent.shape)}")
+    del model_conf, disp_conf, ent
 
     # The NDHWC kernels at every call of a KITTI and a Middlebury frame
     # against their plain versions, bit for bit, and timed beside them.
@@ -2037,50 +1918,39 @@ def main() -> int:
     del md_model, md_left, md_right
     torch.cuda.empty_cache()
 
-    # ---- 5. layers and device busy share
-    with torch.inference_mode():
-        x = torch.cat([left, right]).permute(0, 3, 1, 2).to(torch.bfloat16)
-        feats = model.feature(x)
-        fl, fr = feats[:1], feats[1:]
-        pre = model.matching(fl, fr, d)
-        k3 = model.matching.last_3.conv.weight.to(torch.bfloat16)
-        layers = {
-            "feature_both_views_ms": cuda_ms(lambda: model.feature(x), iters=5),
-            "fused_stem0_ms": cuda_ms(lambda: model.matching.stem0(fl, fr, d), iters=5),
-            "matching_net_ms": cuda_ms(lambda: model.matching(fl, fr, d), iters=5),
-            "fused_head_ms": cuda_ms(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp), iters=5),
-            "last_3_conv_plus_band_ms": cuda_ms(
-                lambda: soft_argmin_cuda(model.matching.last_3(pre)[:, 0].float(), maxdisp), iters=5),
-            # Host time to enqueue one head through the custom op and through
-            # its wrapper directly: the op's dispatch cost per frame.
-            "fused_head_op_host_us": host_us(lambda: conv_soft_argmin_fused(pre, k3, maxdisp)),
-            "fused_head_direct_host_us": host_us(lambda: conv_soft_argmin_cuda(pre, k3, maxdisp)),
-        }
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+    # ---- 5. profile: the device time of three KITTI bf16 frames by kernel
+    # kind, after one untraced frame; the launches over the four frames, for
+    # the kernel table (tests/test_torch_cuda.py holds them to a frame's).
+    # Device-side events only (kernels, copies): operator events carry their
+    # kernels' time as well and would count it twice.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
+    from leastereo_tpu_torch.ops.conv3d import conv3d_bias_relu_sm90
+
+    ndhwc = ndhwc_counters()
+    zero_counts()
+    for fn in (*ndhwc.values(), conv3d_bias_relu_sm90):
+        fn.launches = 0
+    with torch.inference_mode():
+        model(left, right)
+        torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 model(left, right)
             torch.cuda.synchronize()
-    # Device-side events only (kernels, copies): operator events carry their
-    # kernels' time as well and would count it twice. The idle share compares
-    # the device time per frame with the untraced frame time of phase 4, since
-    # tracing slows the host.
+    default_frames = 4
+    default_launches = read_counts()
+    ndhwc_launches = {k: fn.launches for k, fn in ndhwc.items()}
+    conv3d_launches = conv3d_bias_relu_sm90.launches
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / 3
-    groups = {}
-    for e in events:
-        name = e.key
-        kind = next((k for k, pats in KERNEL_GROUPS if any(p in name for p in pats)), "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / 3
-    emit({"phase": "layers", "card": card, **layers,
-          "device_ms_per_frame": busy_ms, "device_idle_share": 1 - busy_ms / (1e3 * elapsed / frames),
-          "device_ms_per_frame_by_kind": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+    emit({"phase": "frame_profile", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "bfloat16",
+          "frames": default_frames, "launches": default_launches, "ndhwc_launches": ndhwc_launches,
+          "conv3d_sm90_launches": conv3d_launches,
+          "device_ms_per_frame": sum(e.self_device_time_total for e in events) / 1e3 / 3,
+          "device_ms_per_frame_by_kind": by_kind(events, 3),
           "top_kernels_ms_per_frame": [[e.key[:100], e.self_device_time_total / 1e3 / 3]
                                        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]]})
-    del model_conf, feats, pre, x  # phase 8 reuses the model
-    torch.cuda.empty_cache()
 
     # Four fp32 KITTI frames (the fp32 sm90 head's case), the last three
     # under the profiler, with cuDNN's TF32 on as PyTorch's default gives a
@@ -2101,15 +1971,11 @@ def main() -> int:
     events32 = [e for e in prof32.key_averages() if e.device_type == DeviceType.CUDA]
     fp32_frame_ms = sum(e.self_device_time_total for e in events32) / 1e3 / 3
     fp32_head_frame_ms = sum(e.self_device_time_total for e in events32 if "head_sm90_f32_kernel" in e.key) / 1e3 / 3
-    groups32 = {}
-    for e in events32:
-        kind = next((k for k, pats in KERNEL_GROUPS if any(p in e.key for p in pats)), "other")
-        groups32[kind] = groups32.get(kind, 0.0) + e.self_device_time_total / 1e3 / 3
     emit({"phase": "fp32_frame", "card": card, "shape": [1, H, W], "maxdisp": maxdisp, "dtype": "float32",
           "cudnn_tf32": True, "frames": 4, "device_ms_per_frame": fp32_frame_ms,
           "fused_head_sm90_f32_ms_per_frame": fp32_head_frame_ms,
           "fused_head_sm90_f32_share": fp32_head_frame_ms / fp32_frame_ms, "launches": fp32_frame_launches,
-          "device_ms_per_frame_by_kind": dict(sorted(groups32.items(), key=lambda kv: -kv[1]))})
+          "device_ms_per_frame_by_kind": by_kind(events32, 3)})
     if fp32_frame_launches != {k: 4 if k == "fused_head_sm90_f32" else 0 for k in counters} or not fp32_head_frame_ms > 0:
         raise AssertionError(f"fp32 KITTI frames: launches {fp32_frame_launches} in 4 frames, "
                              f"fp32 sm90 head {fp32_head_frame_ms} ms a frame")
@@ -2229,7 +2095,7 @@ def main() -> int:
               for run, r in cli.items() if run not in ("predict", "evaluate --full_frame")}
 
     # ---- 9. export: the .pt2 driver, the loaded programs' launches and times
-    export_launches = export_phase(model, state, counters, card, 1e3 * elapsed / frames)
+    export_launches = export_phase(model, state, counters, card)
 
     # ---- 10. training: the band kernel at the train shape, a train step's
     # kernel path against its plain path, the KITTI fine-tune through the driver
@@ -2259,8 +2125,8 @@ def main() -> int:
 
     # ---- kernel table, card, result
     # launches: each kernel's count over the run of the path that uses it,
-    # zeroed just before it: the KITTI bf16 default forward (phase 4, sm90
-    # head), its confidence forward (phase 4, band kernel), the fp32 default
+    # zeroed just before it: the KITTI bf16 default forward (phase 5's four
+    # frames, sm90 head), its confidence forward (phase 4, band kernel), the fp32 default
     # forward (phase 6, fp32 sm90 head), the op on volumes TMA cannot read in
     # place (phase 6, the repitch routes); padded_channels_path_launches: the fp32
     # forward with a 24-channel matching net (phase 6); fp32_frame_launches:
@@ -2287,8 +2153,8 @@ def main() -> int:
     # yardstick_ms is the unfused pair (cuDNN last_3 + band kernel). The
     # NDHWC kernels: ms, library_ms and bound_ms summed over a KITTI frame's
     # calls (middlebury_*: a Middlebury frame's), library_ms their plain
-    # versions' (phase 4's check frames); launches over phase 4's default
-    # forward.
+    # versions' (phase 4's check frames); launches over phase 5's default
+    # forward frames.
     def shapes_of(route: str) -> dict:
         return {n: {k: r[k] for k in ("ms", "yardstick_ms", "bound_ms", "max_abs_err")}
                 for n, r in routes.items() if r["route"] == route}
@@ -2324,7 +2190,7 @@ def main() -> int:
 
         entry = {"name": "conv3d_sm90", "route": "cuda", "source": SRC_CONV3D, "replaces": None,
                  "launches": conv3d_launches, "launches_per_frame": conv3d_launches / default_frames,
-                 "path": "the eval matching net's 3x3x3 convolutions (phase 4)",
+                 "path": "the eval matching net's 3x3x3 convolutions (phase 5)",
                  "max_abs_err": max(r["max_abs_err"] for r in conv_rows if r["admitted"]), "bound_by": "per class",
                  "classes": [{k: r[k] for k in ("frame", "cin", "cout", "dhw", "calls_per_frame", "admitted")}
                              for r in conv_rows]}
@@ -2338,7 +2204,7 @@ def main() -> int:
         {"name": "fused_head_sm90", "route": "cuda", "source": SRC_SM90,
          "replaces": "leastereo_tpu/ops/pallas_head.py:96", "launches": default_launches["fused_head_sm90"],
          "launches_per_frame": default_launches["fused_head_sm90"] / default_frames,
-         "path": "KITTI bf16 default forward (phase 4)", "max_abs_err": errs["fused_head_sm90"], "ms": sm90_ms,
+         "path": "KITTI bf16 default forward (phase 5)", "max_abs_err": errs["fused_head_sm90"], "ms": sm90_ms,
          "plain_ms": head_plain_ms, "bound_ms": head_bound[0], "bound_by": head_bound[1], "library_ms": None,
          "yardstick_ms": unfused_ms, "route_shapes": shapes_of("sm90"), **cli_of["fused_head_sm90"], **train_of["fused_head_sm90"],
          "entry": "torch.ops.leastereo.conv_soft_argmin", "export_launches": export_launches["fused_head_sm90"],
@@ -2370,9 +2236,9 @@ def main() -> int:
          "entry": "torch.ops.leastereo.band_soft_argmin", "export_launches": export_launches["band_soft_argmin"],
          "search_launches": search["launches"], "search_ms": search["ms"], "search_plain_ms": search["plain_ms"],
          "search_bound_ms": search["bound_ms"], "search_max_abs_err": search["err"], **par_of["band_soft_argmin"]},
-        ndhwc_entry("stem_ndhwc", "the eval matching net's stem, NDHWC (phase 4)"),
-        ndhwc_entry("cat_ndhwc", "the eval matching net's cell and skip concatenations (phase 4)"),
-        ndhwc_entry("resize_ndhwc", "the eval matching net's 3-D resizes, the last written NCDHW (phase 4)"),
+        ndhwc_entry("stem_ndhwc", "the eval matching net's stem, NDHWC (phase 5)"),
+        ndhwc_entry("cat_ndhwc", "the eval matching net's cell and skip concatenations (phase 5)"),
+        ndhwc_entry("resize_ndhwc", "the eval matching net's 3-D resizes, the last written NCDHW (phase 5)"),
         conv3d_entry(),
     ]})
     print(smi, flush=True)

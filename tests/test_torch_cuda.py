@@ -684,7 +684,8 @@ def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
     3-D eval ConvBR of the matching net (its 75 3x3x3 and 25 1x1x1
     convolutions) on an NDHWC route, the 3x3x3 ones on the sm90 kernel, its
     17 resizes and 14 concatenations in the NDHWC kernels, the fused head
-    launched once on a contiguous NCDHW volume. The float32 frame (TF32 off) whose volumes stay NDHWC is within
+    launched once on a contiguous NCDHW volume and no other head, a finite
+    map within [0, maxdisp]. The float32 frame (TF32 off) whose volumes stay NDHWC is within
     ``TOL_PX`` of the one whose volumes stay NCDHW throughout: only cuDNN's
     summation order differs between them."""
     import leastereo_tpu_torch.models.leastereo as lst
@@ -702,7 +703,9 @@ def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
     left, right = (torch.from_numpy(rng.randn(1, 384, 1248, 3).astype(np.float32)).to(dev) for _ in range(2))
     vols, head = [], lst.conv_soft_argmin_fused
     monkeypatch.setattr(lst, "conv_soft_argmin_fused", lambda vol, k, m: vols.append(vol) or head(vol, k, m))
-    kernels = (conv_soft_argmin_sm90, resize3d_ndhwc_cuda, stem_ndhwc_cuda, cat_ndhwc_cuda, conv3d_bias_relu_sm90)
+    kernels = (conv_soft_argmin_sm90, resize3d_ndhwc_cuda, stem_ndhwc_cuda, cat_ndhwc_cuda, conv3d_bias_relu_sm90,
+               conv_soft_argmin_sm90_repitch, conv_soft_argmin_sm90_f32, conv_soft_argmin_sm90_f32_repitch,
+               soft_argmin_cuda)
 
     def routes_of(fn):
         before = dict(ConvBR.eval_routes)
@@ -715,9 +718,11 @@ def test_kitti_frame_volumes_are_ndhwc(dev, monkeypatch):
         torch.cuda.synchronize()
         # The 7 conv-then-resize projections (models/cells.py) apply their ReLU after the resize.
         assert delta == FRAME_ROUTES
-        assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 17, 1, 14, FRAME_ROUTES["ndhwc_sm90"]]
+        assert [f.launches - n for f, n in zip(kernels, launches)] == [1, 17, 1, 14, FRAME_ROUTES["ndhwc_sm90"],
+                                                                       0, 0, 0, 0]
         assert len(vols) == 1 and vols[0].shape == (1, 32, 64, 128, 416) and vols[0].is_contiguous()
-        assert torch.isfinite(got).all()
+        assert got.shape == (1, 384, 1248) and torch.isfinite(got).all()
+        assert 0 <= got.min().item() and got.max().item() <= 192
         model32 = best_sceneflow_model(LEAStereoConfig(maxdisp=192, compute_dtype="float32"), device=dev)
         model32.load_state_dict(state)
         got32, delta = routes_of(lambda: model32(left, right))
